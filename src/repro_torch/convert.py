@@ -16,6 +16,8 @@ import torch
 from repro_torch.core.geometry import GpuGeometry
 from repro_torch.core.simulator import Trace
 from repro_torch.core.tagarray import TagState
+from repro_torch.core.trace.serving import RequestStream
+from repro_torch.serving.engine import ServingConfig
 
 
 def tag_state(arrays: Mapping[str, np.ndarray], device="cpu") -> TagState:
@@ -38,3 +40,24 @@ def geometry(ref_geom) -> GpuGeometry:
     """A reference ``GpuGeometry`` (or anything with its fields)."""
     return GpuGeometry(**{f.name: getattr(ref_geom, f.name)
                           for f in dataclasses.fields(GpuGeometry)})
+
+
+def request_stream(ref_stream) -> RequestStream:
+    """A reference ``RequestStream`` (or anything with its fields) as the
+    port's, so both packages replay the same stream. The directory starts
+    empty in both; the stream is all the state there is."""
+    return RequestStream(valid=np.asarray(ref_stream.valid),
+                         hashes=np.asarray(ref_stream.hashes),
+                         n_blocks=np.asarray(ref_stream.n_blocks),
+                         tenant=np.asarray(ref_stream.tenant),
+                         tenants=tuple(ref_stream.tenants),
+                         slots=int(ref_stream.slots))
+
+
+def serving_config(ref_cfg) -> ServingConfig:
+    """A reference ``ServingConfig`` as the port's. The two packages'
+    probe backends differ, so the port's stays its device default."""
+    return ServingConfig(**{
+        f.name: getattr(ref_cfg, f.name)
+        for f in dataclasses.fields(ServingConfig)
+        if f.name != "probe_backend"})

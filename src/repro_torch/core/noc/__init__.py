@@ -1,21 +1,31 @@
 """Pluggable interconnect (NoC) models for the cache-hierarchy simulator.
 
 Public API:
-  NocModel, NocTraffic, NocTransit, init_noc_state — the model
-      interface + carried-state convention (base.py)
+  NocModel, NocTraffic, NocTransit, init_noc_state, port_rate — the
+      model interface + carried-state convention (base.py)
   register_noc / get_noc / registered_nocs — the model registry
+  PAPER_NOCS — the topology comparison set
 
-One model registers on import:
+Three models register on import:
 
   ideal    : infinite bandwidth, zero latency (the default everywhere)
+  crossbar : per-port arbitration with finite injection queues whose
+             occupancy carries across rounds (real backpressure)
+  ring     : hop-distance latency from cluster positions plus
+             per-link flit accounting (hotspots)
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 from repro_torch.core.noc.base import (NocModel, NocState, NocTraffic,
-                                       NocTransit, init_noc_state)
+                                       NocTransit, init_noc_state, port_rate)
+from repro_torch.core.noc.crossbar import CrossbarNoc
 from repro_torch.core.noc.ideal import IdealNoc
+from repro_torch.core.noc.ring import RingNoc
+
+#: The topology comparison set (the reference's ``PAPER_NOCS``).
+PAPER_NOCS: Tuple[str, ...] = ("ideal", "crossbar", "ring")
 
 _REGISTRY: Dict[str, NocModel] = {}
 
@@ -45,8 +55,11 @@ def registered_nocs() -> Tuple[str, ...]:
 
 
 register_noc(IdealNoc())
+register_noc(CrossbarNoc())
+register_noc(RingNoc())
 
 __all__ = [
     "NocModel", "NocState", "NocTraffic", "NocTransit", "init_noc_state",
-    "IdealNoc", "register_noc", "get_noc", "registered_nocs",
+    "port_rate", "IdealNoc", "CrossbarNoc", "RingNoc", "PAPER_NOCS",
+    "register_noc", "get_noc", "registered_nocs",
 ]

@@ -60,9 +60,9 @@ class NocTransit(NamedTuple):
     occupancy: torch.Tensor    # (P, R) float32 extra serial busy time
 
 
-def init_noc_state(n_links: int, *, batch: int = 1,
-                   device="cpu") -> NocState:
-    """The carried NoC state (uniform keys; see module docstring)."""
+def init_noc_state(n_links: int, *, device, batch: int = 1) -> NocState:
+    """The carried NoC state (uniform keys; see module docstring) on
+    ``device`` (required: the state lives where the traffic does)."""
     f = dict(dtype=torch.float32, device=device)
     return {
         "queue": torch.zeros((batch, n_links), **f),
@@ -103,3 +103,16 @@ class NocModel:
             + torch.where(crossed, delay, 0.0).sum(dim=-1),
             delay_n=state["delay_n"] + crossed.sum(dim=-1).to(torch.float32),
         )
+
+
+def port_rate(geom):
+    """Per-port forwarding rate (flits/cycle): the cluster's probe
+    network bandwidth shared across its cores' ports.
+
+    A float32 zero-dim tensor for the simulator's
+    :class:`~repro_torch.core.geometry.DeviceGeometry`, a Python float
+    for a host :class:`~repro_torch.core.geometry.GpuGeometry` (the
+    serving engine's); either way the models convert it to float32
+    where it meets a tensor, as the reference's weak-typed scalars do.
+    """
+    return geom.noc_bw / geom.cluster_size

@@ -54,8 +54,10 @@ class ReplacementPolicy(enum.Enum):
     RANDOM = "random"
 
 
-def init_tag_state(n_arrays: int, n_sets: int, n_ways: int, *,
-                   batch: int = 1, device="cpu") -> TagState:
+def init_tag_state(n_arrays: int, n_sets: int, n_ways: int, *, device,
+                   batch: int = 1) -> TagState:
+    """Empty tag arrays with a leading point axis of ``batch``, on
+    ``device`` (required: nothing defaults to the CPU)."""
     shape = (batch, n_arrays, n_sets, n_ways)
     i32 = dict(dtype=torch.int32, device=device)
     b = dict(dtype=torch.bool, device=device)

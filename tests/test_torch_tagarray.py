@@ -173,7 +173,7 @@ def test_batched_state_equals_per_point():
 
 def test_init_tag_state_matches_reference_layout():
     want = ref.init_tag_state(4, 2, 8)
-    got = port.init_tag_state(4, 2, 8, batch=2)
+    got = port.init_tag_state(4, 2, 8, batch=2, device="cpu")
     assert set(got) == set(want)
     for k, v in want.items():
         assert got[k].shape == (2,) + tuple(v.shape), k
