@@ -2,7 +2,8 @@
 
 ``repro_torch`` mirrors the JAX reference package ``repro`` module for
 module (``core/``, ``core/arch/``, ``core/noc/``, ``core/trace/``,
-``serving/``, ``kernels/``) and never imports it; the parity tests hold
+``serving/``, ``models/``, ``configs/``, ``kernels/``, ``launch/``) and
+never imports it; the parity tests hold
 the two against each other. Its entry points run on the CUDA card unless
 the caller passes ``device="cpu"``.
 """

@@ -8,7 +8,7 @@ here imports the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -17,10 +17,12 @@ from repro_torch.core.geometry import GpuGeometry
 from repro_torch.core.simulator import Trace
 from repro_torch.core.tagarray import TagState
 from repro_torch.core.trace.serving import RequestStream
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
 from repro_torch.serving.engine import ServingConfig
 
 
-def tag_state(arrays: Mapping[str, np.ndarray], device="cpu") -> TagState:
+def tag_state(arrays: Mapping[str, np.ndarray], *, device) -> TagState:
     """A reference TagState (its dict with every array through
     ``np.asarray``) as the port's, with a leading point axis of 1."""
     return {k: torch.from_numpy(np.array(v)).unsqueeze(0).to(device)
@@ -61,3 +63,98 @@ def serving_config(ref_cfg) -> ServingConfig:
         f.name: getattr(ref_cfg, f.name)
         for f in dataclasses.fields(ServingConfig)
         if f.name != "probe_backend"})
+
+
+def model_config(ref_cfg) -> ModelConfig:
+    """A reference ``ModelConfig`` as the port's. The reference's kernel
+    routes ("pallas", "interpret") become the port's "kernel"."""
+    kw = {f.name: getattr(ref_cfg, f.name)
+          for f in dataclasses.fields(ModelConfig)}
+    impl = kw["attention_impl"]
+    kw["attention_impl"] = "kernel" if impl in ("pallas", "interpret") \
+        else impl
+    return ModelConfig(**kw)
+
+
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    """A reference leaf (through ``np.asarray``) as a tensor; bfloat16
+    goes through float32, which holds it exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=dtype or torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+
+
+def _leaves(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], object]]:
+    if isinstance(tree, Mapping):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def _layer_index(cfg: ModelConfig):
+    return {(stack, name, g): i for i, (stack, name, g)
+            in enumerate(transformer.layer_keys(cfg))}
+
+
+def params(ref_params, cfg: ModelConfig, *, device
+           ) -> transformer.Transformer:
+    """The reference's parameter pytree as the port's module.
+
+    Each stacked leaf of ``params["layers"]`` is split along its leading
+    period axis onto the layers that run in that period, in the
+    reference's ``sorted(name)`` order. Every reference leaf must land
+    on exactly one port parameter, and every port parameter must be
+    filled: a leftover, repeated or missing leaf raises.
+    """
+    model = transformer.Transformer(cfg, device=device)
+    port = dict(model.named_parameters())
+    index = _layer_index(cfg)
+    filled = set()
+
+    def put(name, a):
+        if name not in port:
+            raise KeyError(f"reference leaf {name} has no port parameter")
+        if name in filled:
+            raise KeyError(f"reference leaf {name} given twice")
+        t = port[name]
+        src = _tensor(a, device, t.dtype)
+        if src.shape != t.shape:
+            raise ValueError(f"{name}: reference shape {tuple(src.shape)}, "
+                             f"port {tuple(t.shape)}")
+        t.data.copy_(src)
+        filled.add(name)
+
+    for path, leaf in _leaves(ref_params):
+        stack = path[0]
+        if stack == "layers":
+            a = np.asarray(leaf)
+            for g in range(a.shape[0]):
+                i = index[(stack, path[1], g)]
+                put(".".join((stack, str(i)) + path[2:]), a[g])
+        elif stack == "layers_rem":
+            i = index[(stack, path[1], None)]
+            put(".".join(("layers", str(i)) + path[2:]), leaf)
+        else:
+            put(".".join(path), leaf)
+    missing = set(port) - filled
+    if missing:
+        raise KeyError(f"port parameters with no reference leaf: "
+                       f"{sorted(missing)}")
+    return model
+
+
+def cache(ref_cache, cfg: ModelConfig, *, device) -> transformer.Cache:
+    """The reference's decode cache (stacked by period) as the port's
+    list of per-layer dicts, so decode parity can start mid-run."""
+    if "cross" in ref_cache:
+        raise NotImplementedError("the encoder-decoder path is not ported "
+                                  "yet (ROADMAP A19)")
+    out = []
+    for stack, name, g in transformer.layer_keys(cfg):
+        src = ref_cache[stack][name]
+        out.append({k: _tensor(np.asarray(a)[g] if g is not None else a,
+                               device) for k, a in src.items()})
+    return out

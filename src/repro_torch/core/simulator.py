@@ -44,7 +44,7 @@ def resolve_device(device=None) -> torch.device:
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to "
-                           "run the simulator on the CPU")
+                           "run on the CPU")
     return device
 
 

@@ -1,0 +1,152 @@
+"""Blocked online-softmax attention with GQA, an end-aligned causal mask,
+a sliding window and a per-batch valid KV length.
+
+Replaces the Pallas TPU kernel
+``repro/kernels/flash_attention.py::_attn_kernel``.
+
+Semantics, those of the TPU kernel: q is scaled by ``D**-0.5`` in f32 and
+every product and sum is f32; query head h reads KV head
+``h // (Hq // Hkv)``; query row i sits at key position ``i + Tk - Tq``;
+key ``kpos`` is visible when ``kpos < kv_len``, and ``kpos <= qpos`` if
+causal, and ``kpos > qpos - window`` if a window is given; a row that
+sees no key comes back as zeros.
+
+What bounds it on an H100: operations. At the qwen3-0.6b prefill shape
+(B=1, Hq=16, Hkv=8, T=4096, D=128, causal) one launch does 4*D flops on
+each of 134M visible pairs (69 GFLOP) against 50 MB of q/k/v/o. The
+design (``csrc/flash_attention.cu``) is the simplest right one: one CTA
+per (64 query rows, head, batch) walks the KV axis in tiles of 64 keys
+staged in shared memory, skipping tiles its rows cannot see, with an
+online softmax in f32 on the CUDA cores. Tensor cores (``wgmma``), TMA
+and warp specialisation are for a later redesign. The TPU kernel's
+``Tq % bq`` restriction was a tiling rule, not semantics: any Tq and Tk
+work here.
+
+:func:`flash_attention_plain` is the plain PyTorch version (a port of
+``repro/kernels/ref.py::attention_len_ref``, with zeros for fully masked
+rows). The wrapper takes it only for CPU tensors; for CUDA tensors it
+launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+#: Kernel launches made by :func:`flash_attention` in this process.
+launches = 0
+
+#: head dims the kernel is compiled for
+HEAD_DIMS = (32, 64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def flash_attention_plain(q, k, v, kv_len=None, *, causal: bool = True,
+                          window: Optional[int] = None):
+    """Unblocked plain version.
+
+    q (B, Hq, Tq, D); k, v (B, Hkv, Tk, D); kv_len (B,) int or None for
+    Tk. Returns (B, Hq, Tq, D) in q's dtype.
+    """
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    qf = (q.float() * D ** -0.5).reshape(B, Hkv, g, Tq, D)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float())
+    qpos = torch.arange(Tq, device=q.device)[:, None] + (Tk - Tq)
+    kpos = torch.arange(Tk, device=q.device)[None, :]
+    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    mask = mask[None, None, None]
+    if kv_len is not None:
+        mask = mask & (kpos < kv_len.to(q.device)[:, None, None, None, None])
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(torch.isnan(p), 0.0, p)          # fully masked rows: 0
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return o.reshape(B, Hq, Tq, D).to(q.dtype)
+
+
+def _check(q, k, v, kv_len, window):
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dim() != 4:
+            raise ValueError(f"{name} must be 4-d, got {tuple(x.shape)}")
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if x.dtype != q.dtype:
+            raise ValueError(f"{name} is {x.dtype}, q is {q.dtype}")
+        if x.stride(-1) != 1:
+            raise ValueError(f"{name} must have a unit stride in its last "
+                             "dim")
+    B, Hq, Tq, D = q.shape
+    if q.dtype not in DTYPES:
+        raise ValueError(f"flash_attention takes {DTYPES}, got {q.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention supports head dims {HEAD_DIMS}, "
+                         f"got {D}")
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if Hq % k.shape[1]:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={k.shape[1]}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if kv_len is not None and (kv_len.shape != (B,) or kv_len.dtype !=
+                               torch.int32 or kv_len.device != q.device
+                               or not kv_len.is_contiguous()):
+        raise ValueError("kv_len must be a contiguous (B,) int32 tensor on "
+                         "q's device")
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    fn = build.load("flash_attention").flash_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention(q, k, v, kv_len=None, *, causal: bool = True,
+                    window: Optional[int] = None):
+    """Attention of q (B, Hq, Tq, D) over k/v (B, Hkv, Tk, D).
+
+    CPU tensors take :func:`flash_attention_plain`. CUDA tensors launch
+    the Hopper kernel: q, k, v of one dtype (f32 or bf16), D in
+    :data:`HEAD_DIMS`, any strides with a unit last one; kv_len a (B,)
+    int32 tensor or None. Returns (B, Hq, Tq, D) in q's dtype.
+    """
+    global launches
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, kv_len, causal=causal,
+                                     window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
+                         f"{q.device}")
+    _check(q, k, v, kv_len, window)
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    o = torch.empty((B, Hq, Tq, D), dtype=q.dtype, device=q.device)
+    if o.numel() == 0:
+        return o
+    launch = _launcher()
+    with torch.cuda.device(q.device):
+        err = launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if kv_len is None else kv_len.data_ptr(), o.data_ptr(),
+            B, Hq, Hkv, Tq, Tk, D, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], int(causal), 0 if window is None else window,
+            D ** -0.5, int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    launches += 1
+    return o

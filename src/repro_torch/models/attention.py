@@ -1,0 +1,238 @@
+"""GQA attention: parameters, prefill forward, decode step, KV cache.
+
+The port of the reference's ``models/attention.py``. Routes
+(``cfg.attention_impl``):
+
+  - "kernel": the flash-attention kernel through ``ops.attention``
+    (the Hopper kernel on CUDA tensors, its plain version on CPU ones);
+  - "blocked": online-softmax over (q-chunk, kv-chunk) tiles in plain
+    PyTorch;
+  - "ref": plain einsum attention.
+
+Decode never reaches the kernel, as in the reference: one query row
+against the cache is a plain einsum softmax. The cache is rewritten out
+of place each step, as the reference's ``jnp.where`` does, so a cache a
+caller holds never changes under it. The reference's sharding
+annotations and its cross-attention path (encoder-decoder, ROADMAP A19)
+are not ported.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+
+NEG_INF = -1e30
+
+
+class Attention(nn.Module):
+    """Parameters ``wq``, ``wk``, ``wv`` (Dense), ``wo.kernel`` (H, hd, d)
+    and, with ``qk_norm``, ``q_norm``/``k_norm`` (RMSNorm over hd)."""
+
+    def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
+        super().__init__()
+        d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        dt = layers.dtype_of(cfg.param_dtype)
+        kw = dict(dtype=dt, generator=generator, device=device)
+        self.wq = layers.Dense(d, (H, hd), bias=cfg.qkv_bias, **kw)
+        self.wk = layers.Dense(d, (KV, hd), bias=cfg.qkv_bias, **kw)
+        self.wv = layers.Dense(d, (KV, hd), bias=cfg.qkv_bias, **kw)
+        self.wo = layers.Dense(H, (hd, d), stddev=(H * hd) ** -0.5, **kw)
+        if cfg.qk_norm:
+            self.q_norm = layers.RMSNorm(hd, dt, device)
+            self.k_norm = layers.RMSNorm(hd, dt, device)
+
+
+def _project_qkv(p: Attention, cfg: ModelConfig, x, *, positions,
+                 kv_repeat: int = 1):
+    q = layers.dense(p.wq, x)                         # (B,T,H,hd)
+    k = layers.dense(p.wk, x)                         # (B,T,KV,hd)
+    v = layers.dense(p.wv, x)
+    if cfg.qk_norm:
+        q = layers.rmsnorm(p.q_norm, q, cfg.norm_eps)
+        k = layers.rmsnorm(p.k_norm, k, cfg.norm_eps)
+    # q and k share their positions: the angles are computed once
+    cos, sin = layers.rope_angles(positions, cfg.head_dim // 2,
+                                  cfg.rope_theta, x.device)
+    q = layers.apply_rope(q, cos, sin)
+    k = layers.apply_rope(k, cos, sin)
+    if kv_repeat > 1:
+        k = k.repeat_interleave(kv_repeat, dim=2)
+        v = v.repeat_interleave(kv_repeat, dim=2)
+    return q, k, v
+
+
+def _out_proj(p: Attention, o):
+    """o (B, T, H, hd) @ wo (H, hd, d) -> (B, T, d)."""
+    B, T, H, hd = o.shape
+    w = p.wo.kernel.reshape(H * hd, -1).to(o.dtype)
+    y = o.reshape(B, T, H * hd) @ w
+    if p.wo.bias is not None:
+        y = y + p.wo.bias.to(y.dtype)
+    return y
+
+
+def blocked_attention(q, k, v, *, causal: bool, window: Optional[int],
+                      chunk: int, kv_len=None):
+    """Online-softmax tiled attention, (B,H,T,D) layout, plain PyTorch."""
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    if group > 1:
+        k = k.repeat_interleave(group, dim=1)
+        v = v.repeat_interleave(group, dim=1)
+    scale = D ** -0.5
+    dev = q.device
+
+    def best_chunk(T, c):
+        c = min(c, T)
+        while T % c:
+            c -= 1
+        return c
+
+    cq = best_chunk(Tq, chunk)
+    ck = best_chunk(Tk, chunk)
+    offset = Tk - Tq                     # end-aligned positions
+    outs = []
+    for qi in range(Tq // cq):
+        qc = (q[:, :, qi * cq:(qi + 1) * cq] * scale).float()
+        qpos = qi * cq + torch.arange(cq, device=dev)[:, None] + offset
+        m = torch.full((B, Hq, cq, 1), NEG_INF, device=dev)
+        l = torch.zeros((B, Hq, cq, 1), device=dev)
+        acc = torch.zeros((B, Hq, cq, D), device=dev)
+        for ki in range(Tk // ck):
+            kc = k[:, :, ki * ck:(ki + 1) * ck].float()
+            vc = v[:, :, ki * ck:(ki + 1) * ck]
+            s = torch.einsum("bhqd,bhkd->bhqk", qc, kc)
+            kpos = ki * ck + torch.arange(ck, device=dev)[None, :]
+            mask = torch.ones((cq, ck), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= kpos <= qpos
+            if window is not None:
+                mask &= kpos > qpos - window
+            if kv_len is not None:
+                mask = (mask[None] & (kpos[None] < kv_len[:, None, None]))
+                mask = mask[:, None]
+            else:
+                mask = mask[None, None]
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            pexp = torch.where(mask, torch.exp(s - m_new), 0.0)
+            corr = torch.exp(m - m_new)
+            l = l * corr + pexp.sum(-1, keepdim=True)
+            acc = acc * corr + torch.einsum(
+                "bhqk,bhkd->bhqd", pexp.to(v.dtype).float(), vc.float())
+            m = m_new
+        outs.append((acc / torch.where(l == 0.0, 1.0, l)).to(q.dtype))
+    return torch.cat(outs, dim=2)
+
+
+def attention_forward(p: Attention, cfg: ModelConfig, x, *, positions,
+                      causal=True, window=None, kv_repeat: int = 1):
+    """Full-sequence attention (prefill): x (B, T, d) -> (B, T, d)."""
+    q, k, v = _project_qkv(p, cfg, x, positions=positions,
+                           kv_repeat=kv_repeat)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))     # (B,H,T,hd)
+    if cfg.attention_impl == "blocked":
+        o = blocked_attention(qt, kt, vt, causal=causal, window=window,
+                              chunk=cfg.attn_chunk)
+    else:
+        o = ops.attention(qt, kt, vt, causal=causal, window=window,
+                          impl=cfg.attention_impl)
+    return _out_proj(p, o.transpose(1, 2))
+
+
+# ---------------------------------------------------------------------------
+# decode path
+# ---------------------------------------------------------------------------
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  kv_repeat: int = 1, dtype=torch.bfloat16, *,
+                  device) -> Dict[str, torch.Tensor]:
+    """KV cache; cfg.kv_cache_dtype == "int8" stores scale-quantized int8
+    payloads with per-(pos, head) f32 scales."""
+    kvh = cfg.n_kv_heads * kv_repeat
+    shape = (batch, kvh, max_len, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        cache = {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:-1] + (1,), device=device),
+            "v_scale": torch.zeros(shape[:-1] + (1,), device=device),
+        }
+    else:
+        cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+    cache["len"] = torch.zeros((batch,), dtype=torch.int32, device=device)
+    return cache
+
+
+def _quantize(x, dim=-1):
+    x32 = x.float()
+    scale = x32.abs().amax(dim=dim, keepdim=True) / 127.0
+    scale = torch.clamp_min(scale, 1e-8)
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def attention_decode(p: Attention, cfg: ModelConfig, x, cache: Dict, *,
+                     window=None, kv_repeat: int = 1
+                     ) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode: x (B, 1, d), cache from init_kv_cache.
+
+    When the cache is smaller than the logical sequence (local-attention
+    ring buffer, size == window), writes wrap modulo the cache length;
+    a write past the end of a full-length cache is dropped, as in the
+    reference.
+    """
+    S = cache["k"].shape[2]
+    ring = window is not None and S <= window
+    pos = cache["len"][:, None]                       # (B,1) logical pos
+    q, k, v = _project_qkv(p, cfg, x, positions=pos, kv_repeat=kv_repeat)
+    write_pos = cache["len"] % S if ring else cache["len"]
+    sel = (torch.arange(S, device=x.device)[None, :]
+           == write_pos[:, None])                     # (B,S)
+    sel4 = sel[:, None, :, None]
+    knew = k.transpose(1, 2)                          # (B,KV,1,hd)
+    vnew = v.transpose(1, 2)
+    new_cache: Dict = {}
+    if "k_scale" in cache:
+        kq, ks = _quantize(knew)
+        vq, vs = _quantize(vnew)
+        ck = torch.where(sel4, kq, cache["k"])
+        cv = torch.where(sel4, vq, cache["v"])
+        cks = torch.where(sel4, ks, cache["k_scale"])
+        cvs = torch.where(sel4, vs, cache["v_scale"])
+        new_cache["k_scale"] = cks
+        new_cache["v_scale"] = cvs
+        kk_full = ck.float() * cks
+        vv_full = cv.float() * cvs
+    else:
+        ck = torch.where(sel4, knew.to(cache["k"].dtype), cache["k"])
+        cv = torch.where(sel4, vnew.to(cache["v"].dtype), cache["v"])
+        kk_full, vv_full = ck, cv
+    new_cache["k"] = ck
+    new_cache["v"] = cv
+    new_len = cache["len"] + 1
+    valid = torch.clamp_max(new_len, S) if ring else new_len
+
+    B, Hq = q.shape[0], q.shape[2]
+    Hkv, hd = ck.shape[1], ck.shape[3]
+    g = Hq // Hkv
+    qt = q.transpose(1, 2).reshape(B, Hkv, g, 1, hd)  # query head h -> h//g
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qt.float(),
+                     kk_full.float()) * cfg.head_dim ** -0.5
+    kpos = torch.arange(S, device=x.device)[None, None, None, None, :]
+    mask = kpos < valid[:, None, None, None, None]
+    if window is not None and not ring:
+        mask &= kpos > (new_len[:, None, None, None, None] - 1 - window)
+    s = torch.where(mask, s, NEG_INF)
+    pr = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", pr.to(vv_full.dtype), vv_full)
+    o = o.reshape(B, Hq, 1, hd).transpose(1, 2).to(x.dtype)  # (B,1,H,hd)
+    new_cache["len"] = new_len
+    return _out_proj(p, o), new_cache

@@ -1,0 +1,117 @@
+"""Recurrent blocks: RWKV6 (Finch) time-mix.
+
+The port of the RWKV6 half of the reference's ``models/recurrent.py``.
+It decodes in O(1) state: {"shift": (B, d), "wkv": (B, H, K, K) f32}.
+The WKV recurrence goes through ``ops.wkv6``: the "kernel" route takes
+the Hopper kernel's wrapper, "ref" and "blocked" its plain version, as
+the reference maps its routes. RG-LRU (RecurrentGemma) is not ported yet
+(ROADMAP A18).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+
+MIX_NAMES = ("r", "k", "v", "w", "g")
+
+
+class RWKV6(nn.Module):
+    """Parameters with the reference's leaf names: Dense ``w_r``, ``w_k``,
+    ``w_v``, ``w_g``, ``w_w``, ``w_out``; ``lora_a`` (d, rank), ``lora_b``
+    (rank, d), ``u`` (H, K), ``mix_{r,k,v,w,g}``, ``w_base``,
+    ``ln_scale``, ``ln_bias`` (d,)."""
+
+    #: leaves that every use casts to the activations' dtype (the token
+    #: shift's mixes and the LoRA factors); ``u``, ``w_base`` and the
+    #: group norm's ``ln_*`` are used in f32
+    compute_cast = ("lora_a", "lora_b", *(f"mix_{n}" for n in MIX_NAMES))
+
+    def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
+        super().__init__()
+        d, K, rank = cfg.d_model, cfg.rwkv_head_dim, cfg.rwkv_lora_rank
+        H = d // K
+        dt = layers.dtype_of(cfg.param_dtype)
+        kw = dict(dtype=dt, generator=generator, device=device)
+        for name in ("w_r", "w_k", "w_v", "w_g"):
+            setattr(self, name, layers.Dense(d, d, **kw))
+        self.w_w = layers.Dense(d, d, stddev=1e-3, **kw)
+        self.w_out = layers.Dense(d, d, **kw)
+
+        def normal(shape, std):
+            return layers.param(layers.truncated_normal(shape, std, **kw))
+
+        def full(value):
+            return layers.param(torch.full((d,), value, dtype=dt,
+                                           device=device))
+        self.lora_a = normal((d, rank), d ** -0.5)
+        self.lora_b = normal((rank, d), 1e-3)
+        self.u = normal((H, K), 0.5)
+        # static token-shift mix coefficients for r, k, v, w, g
+        for name in MIX_NAMES:
+            setattr(self, f"mix_{name}", full(0.5))
+        self.w_base = full(-1.5)      # softplus-ish base log decay
+        self.ln_scale = full(1.0)
+        self.ln_bias = full(0.0)
+
+
+def _rwkv_mix(p: RWKV6, x, x_prev):
+    """Token shift: per-channel lerp between x_{t-1} and x_t."""
+    xx = torch.cat([x_prev[:, None], x[:, :-1]], dim=1) - x
+    mixed = {name: x + xx * getattr(p, f"mix_{name}").to(x.dtype)
+             for name in MIX_NAMES}
+    return mixed, x[:, -1]
+
+
+def _rwkv_rkvwg(p: RWKV6, cfg: ModelConfig, mixed):
+    d = cfg.d_model
+    K = cfg.rwkv_head_dim
+    H = d // K
+    B, T = mixed["r"].shape[:2]
+
+    def heads(t):
+        return t.reshape(B, T, H, K).transpose(1, 2)        # (B,H,T,K)
+
+    r = heads(layers.dense(p.w_r, mixed["r"]))
+    k = heads(layers.dense(p.w_k, mixed["k"]))
+    v = heads(layers.dense(p.w_v, mixed["v"]))
+    g = layers.dense(p.w_g, mixed["g"])                      # (B,T,d)
+    # data-dependent log decay (LoRA): w = -softplus(base + lora) - eps
+    mw = mixed["w"]
+    ww = (torch.tanh(mw) @ p.lora_a.to(mw.dtype)) @ p.lora_b.to(mw.dtype)
+    w = -F.softplus(p.w_base.float() + layers.dense(p.w_w, mw).float()
+                    + ww.float()) - 1e-3
+    return r, k, v, heads(w), g
+
+
+def rwkv6_forward(p: RWKV6, cfg: ModelConfig, x, state: Optional[Dict] = None
+                  ) -> Tuple[torch.Tensor, Dict]:
+    """x (B,T,d); state {"shift": (B,d), "wkv": (B,H,K,K)} or None."""
+    B, T, d = x.shape
+    K = cfg.rwkv_head_dim
+    H = d // K
+    if state is None:
+        state = {"shift": torch.zeros((B, d), dtype=x.dtype, device=x.device),
+                 "wkv": torch.zeros((B, H, K, K), device=x.device)}
+    mixed, new_shift = _rwkv_mix(p, x, state["shift"])
+    r, k, v, w, g = _rwkv_rkvwg(p, cfg, mixed)
+    impl = "ref" if cfg.attention_impl in ("ref", "blocked") else "kernel"
+    o, wkv = ops.wkv6(r, k, v, w, p.u.float(), state["wkv"], impl=impl,
+                      **({"chunk": cfg.wkv_chunk} if impl != "ref" else {}))
+    o = o.transpose(1, 2).reshape(B, T, d)                   # (B,T,d)
+    o = layers.groupnorm(p.ln_scale.float(), p.ln_bias.float(), o, H)
+    o = o.to(x.dtype) * F.silu(g)
+    y = layers.dense(p.w_out, o)
+    return y.to(x.dtype), {"shift": new_shift, "wkv": wkv}
+
+
+def rwkv6_decode(p: RWKV6, cfg: ModelConfig, x, state
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """Single-token step, reusing the T=1 forward (O(1) state)."""
+    return rwkv6_forward(p, cfg, x, state)

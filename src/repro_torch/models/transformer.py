@@ -1,0 +1,298 @@
+"""Model assembly: block zoo -> layer stack -> LM.
+
+The port of the reference's ``models/transformer.py`` for inference.
+Parameters are one :class:`Transformer` module whose parameter names
+carry the reference's leaf names (``embed.table``, ``lm_head.kernel``,
+``layers.<i>.attn.wq.kernel``, ``layers.<i>.rwkv.u``, ...). ``layers``
+holds the blocks in the order they run: the reference stacks them by
+pattern period and runs a period's blocks in ``sorted(name)`` order,
+then the remainder layers, and :func:`layer_keys` names each layer's
+place there (``repro_torch.convert.params`` maps one onto the other).
+A Python loop over layers takes the place of ``lax.scan``; remat has no
+counterpart, because inference needs none.
+
+Public API:
+  init_params(cfg, generator=..., device=...)   -> Transformer
+  cast_for_compute(params, cfg)                  -> Transformer (serving)
+  forward(params, cfg, tokens)                   -> (logits, aux)
+  init_cache(cfg, batch, max_len, device=...)    -> decode cache
+  decode_step(params, cfg, tokens, cache)        -> (logits, new cache)
+
+The cache is a list with one dict per layer, in run order; decode_step
+returns a new list and leaves the one it was given as it was. MoE,
+RG-LRU and the encoder-decoder path are not ported yet (ROADMAP A17,
+A18, A19): a config that asks for one raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import copy
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.core.simulator import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import layers, recurrent
+from repro_torch.models.config import ModelConfig
+
+Cache = List[Dict[str, torch.Tensor]]
+
+
+def padded_vocab(cfg: ModelConfig) -> int:
+    return -(-cfg.vocab_size // 128) * 128
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for what the port does not have yet, naming its ROADMAP item."""
+    if cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported "
+                                  "yet (ROADMAP A17)")
+    if "rglru" in cfg.blocks:
+        raise NotImplementedError(f"{cfg.name}: RG-LRU blocks are not "
+                                  "ported yet (ROADMAP A18)")
+    if cfg.is_enc_dec:
+        raise NotImplementedError(f"{cfg.name}: the encoder-decoder path is "
+                                  "not ported yet (ROADMAP A19)")
+    unknown = set(cfg.blocks) - {"attn", "local_attn", "rwkv6"}
+    if unknown:
+        raise ValueError(f"{cfg.name}: unknown block kinds {sorted(unknown)}")
+
+
+def _pattern_layout(cfg: ModelConfig):
+    """(period_kinds, n_periods, remainder_kinds)."""
+    pat = tuple(cfg.block_pattern)
+    n, per = cfg.n_layers, len(pat)
+    return pat, n // per, tuple(pat[i] for i in range(n % per))
+
+
+def layer_keys(cfg: ModelConfig) -> List[Tuple[str, str, Optional[int]]]:
+    """Each layer's place in the reference's parameter tree, in run
+    order: ("layers", "p<j>_<kind>", period) for the stacked periods,
+    ("layers_rem", "r<i>_<kind>", None) for the remainder."""
+    pat, n_per, rem = _pattern_layout(cfg)
+    names = sorted(f"p{j}_{kind}" for j, kind in enumerate(pat))
+    keys = [("layers", name, g) for g in range(n_per) for name in names]
+    keys += [("layers_rem", name, None)
+             for name in sorted(f"r{i}_{k}" for i, k in enumerate(rem))]
+    return keys
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        kw = dict(dtype=layers.dtype_of(cfg.param_dtype),
+                  generator=generator, device=device)
+        self.wi = layers.Dense(d, f, **kw)
+        self.wo = layers.Dense(f, d, **kw)
+        self.wg = (layers.Dense(d, f, **kw)
+                   if cfg.activation.endswith("_glu") else None)
+
+
+class Block(nn.Module):
+    """One layer: ``norm1``, the mixer (``attn`` or ``rwkv``), ``norm2``
+    and ``mlp``; ``kind`` is the reference's block kind."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, *, generator=None,
+                 device=None):
+        super().__init__()
+        self.kind = kind
+        dt = layers.dtype_of(cfg.param_dtype)
+        self.norm1 = layers.RMSNorm(cfg.d_model, dt, device)
+        self.norm2 = layers.RMSNorm(cfg.d_model, dt, device)
+        if kind in ("attn", "local_attn"):
+            self.attn = attn.Attention(cfg, generator=generator,
+                                       device=device)
+        else:
+            self.rwkv = recurrent.RWKV6(cfg, generator=generator,
+                                        device=device)
+        self.mlp = MLP(cfg, generator=generator, device=device)
+
+
+class Embed(nn.Module):
+    #: the gather and the tied output projection cast the table to the
+    #: compute dtype
+    compute_cast = ("table",)
+
+    def __init__(self, V: int, d: int, dtype, *, generator=None,
+                 device=None):
+        super().__init__()
+        self.table = layers.param(layers.truncated_normal(
+            (V, d), 1.0, generator=generator, device=device, dtype=dtype))
+
+
+class Transformer(nn.Module):
+    """All parameters of a decoder-only LM. With ``generator=None`` the
+    weights are left uninitialised (to be filled by a converter)."""
+
+    def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
+        super().__init__()
+        check_supported(cfg)
+        dt = layers.dtype_of(cfg.param_dtype)
+        kw = dict(generator=generator, device=device)
+        V = padded_vocab(cfg)
+        self.embed = Embed(V, cfg.d_model, dt, **kw)
+        self.final_norm = layers.RMSNorm(cfg.d_model, dt, device)
+        self.lm_head = (None if cfg.tie_embeddings
+                        else layers.Dense(cfg.d_model, V, dtype=dt, **kw))
+        self.layers = nn.ModuleList(
+            Block(cfg, name.split("_", 1)[1], **kw)
+            for _, name, _ in layer_keys(cfg))
+
+
+def init_params(cfg: ModelConfig, *, generator: torch.Generator,
+                device="cuda") -> Transformer:
+    """Random weights drawn from ``generator``, which must live on
+    ``device`` (the CUDA card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+    if generator.device.type != device.type:
+        raise ValueError(f"the generator is on {generator.device}, the "
+                         f"weights go to {device}")
+    return Transformer(cfg, generator=generator, device=device)
+
+
+def cast_for_compute(params: Transformer, cfg: ModelConfig) -> Transformer:
+    """The same model with the operands that each call casts to
+    ``cfg.dtype`` stored in it once: the results are bit for bit those of
+    ``params`` (the cast is the same rounding, made once at load instead
+    of on every call), for a fraction of the launches and bytes a decode
+    step spends on casts. Which leaves those are, each module declares
+    beside the code that casts them (``compute_cast``); the others, used
+    in f32, are shared, not copied.
+    """
+    dt = layers.dtype_of(cfg.dtype)
+    memo = {id(p): p for p in params.parameters()}
+    for mod in params.modules():
+        for leaf in getattr(mod, "compute_cast", ()):
+            p = getattr(mod, leaf)
+            if p is not None and p.dtype != dt:
+                memo[id(p)] = layers.param(p.detach().to(dt))
+    # deepcopy copies the module tree and takes each parameter from memo
+    return copy.deepcopy(params, memo)
+
+
+def _device_of(params: Transformer) -> torch.device:
+    return params.embed.table.device
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+def _mlp_forward(p: MLP, cfg: ModelConfig, x):
+    h = layers.dense(p.wi, x)
+    if p.wg is not None:
+        h = layers.activation(cfg.activation, h, layers.dense(p.wg, x))
+    else:
+        h = layers.activation(cfg.activation, h)
+    return layers.dense(p.wo, h)
+
+
+def _block_forward(p: Block, cfg: ModelConfig, x, *, positions):
+    h = layers.rmsnorm(p.norm1, x, cfg.norm_eps)
+    if p.kind == "rwkv6":
+        a, _ = recurrent.rwkv6_forward(p.rwkv, cfg, h)
+    else:
+        window = cfg.window if p.kind == "local_attn" else None
+        a = attn.attention_forward(p.attn, cfg, h, positions=positions,
+                                   window=window, kv_repeat=cfg.kv_repeat)
+    x = x + a
+    h2 = layers.rmsnorm(p.norm2, x, cfg.norm_eps)
+    return x + _mlp_forward(p.mlp, cfg, h2)
+
+
+def _run_stack(params: Transformer, cfg: ModelConfig, x, *, positions):
+    for p in params.layers:
+        x = _block_forward(p, cfg, x, positions=positions)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# full model
+# ---------------------------------------------------------------------------
+def embed_tokens(params: Transformer, cfg: ModelConfig, tokens):
+    tokens = torch.as_tensor(tokens, device=_device_of(params)).long()
+    return params.embed.table[tokens].to(layers.dtype_of(cfg.dtype))
+
+
+def lm_logits(params: Transformer, cfg: ModelConfig, x):
+    x = layers.rmsnorm(params.final_norm, x, cfg.norm_eps)
+    if params.lm_head is None:
+        logits = x @ params.embed.table.to(x.dtype).T
+    else:
+        logits = layers.dense(params.lm_head, x)
+    return logits.float()
+
+
+def forward_hidden(params: Transformer, cfg: ModelConfig, tokens):
+    """Backbone only: final hidden states (pre final-norm), and the MoE
+    aux loss (zero: MoE is not ported)."""
+    x = embed_tokens(params, cfg, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _run_stack(params, cfg, x, positions=positions)
+    return x, torch.zeros((), device=x.device)
+
+
+def forward(params: Transformer, cfg: ModelConfig, tokens):
+    """Prefill forward: tokens (B, T) -> (logits (B, T, V) f32, aux).
+
+    Runs where ``params`` live (the card, as :func:`init_params` puts
+    them by default)."""
+    x, aux = forward_hidden(params, cfg, tokens)
+    return lm_logits(params, cfg, x), aux
+
+
+# ---------------------------------------------------------------------------
+# decode (one token, O(1) per step given the cache)
+# ---------------------------------------------------------------------------
+def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                 start_len: int, device) -> Dict[str, torch.Tensor]:
+    dt = layers.dtype_of(cfg.dtype)
+    if kind in ("attn", "local_attn"):
+        size = max_len
+        if kind == "local_attn" and cfg.window is not None:
+            size = min(max_len, cfg.window)
+        c = attn.init_kv_cache(cfg, batch, size, cfg.kv_repeat, dtype=dt,
+                               device=device)
+        c["len"].fill_(start_len)
+        return c
+    K = cfg.rwkv_head_dim
+    H = cfg.d_model // K
+    return {"shift": torch.zeros((batch, cfg.d_model), dtype=dt,
+                                 device=device),
+            "wkv": torch.zeros((batch, H, K, K), device=device)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               start_len: int = 0, device="cuda") -> Cache:
+    """Decode cache: one dict per layer, in run order."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    return [_block_cache(cfg, name.split("_", 1)[1], batch, max_len,
+                         start_len, device)
+            for _, name, _ in layer_keys(cfg)]
+
+
+def _block_decode(p: Block, cfg: ModelConfig, x, bcache):
+    h = layers.rmsnorm(p.norm1, x, cfg.norm_eps)
+    if p.kind == "rwkv6":
+        a, bcache = recurrent.rwkv6_decode(p.rwkv, cfg, h, bcache)
+    else:
+        window = cfg.window if p.kind == "local_attn" else None
+        a, bcache = attn.attention_decode(p.attn, cfg, h, bcache,
+                                          window=window,
+                                          kv_repeat=cfg.kv_repeat)
+    x = x + a
+    h2 = layers.rmsnorm(p.norm2, x, cfg.norm_eps)
+    return x + _mlp_forward(p.mlp, cfg, h2), bcache
+
+
+def decode_step(params: Transformer, cfg: ModelConfig, tokens, cache: Cache
+                ) -> Tuple[torch.Tensor, Cache]:
+    """tokens (B, 1) -> (logits (B, 1, V) f32, updated cache)."""
+    x = embed_tokens(params, cfg, tokens)
+    new_cache = []
+    for p, c in zip(params.layers, cache, strict=True):
+        x, c = _block_decode(p, cfg, x, c)
+        new_cache.append(c)
+    return lm_logits(params, cfg, x), new_cache

@@ -116,3 +116,91 @@ def test_serve_stream_on_card_matches_oracle(cuda_device):
                                         want.recomputed_blocks,
                                         want.probe_messages)
         np.testing.assert_array_equal(res.shard_load, want.shard_load)
+
+
+def _assert_one_bf16_step(got, want, atol=1e-5):
+    """bf16 kernel output against its plain version: both compute in f32
+    and round once, so they may differ by one bf16 rounding step of the
+    larger magnitude (plus f32 noise near 0), and no more."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs())
+    _, e = torch.frexp(mag)
+    step = torch.where(mag > 0, torch.ldexp(torch.ones_like(mag), e - 8),
+                       torch.zeros_like(mag))
+    err = (g - w).abs()
+    assert bool(torch.isfinite(g).all()) and bool((err <= step + atol).all()), \
+        float(err.max())
+
+
+def _attn_inputs(B, Hq, Hkv, Tq, Tk, D, dtype, device, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(s, generator=g).to(device=device, dtype=dtype)
+            for s in ((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D))]
+
+
+#: (B, Hq, Hkv, Tq, Tk, D, dtype, causal, window, kv_len)
+ATTN_CASES = [
+    (1, 16, 8, 1024, 1024, 128, torch.bfloat16, True, None, None),
+    (2, 4, 4, 128, 128, 64, torch.float32, True, None, None),
+    (1, 4, 2, 193, 193, 32, torch.float32, True, None, None),    # odd T
+    (1, 4, 2, 130, 200, 64, torch.bfloat16, True, 48, None),     # window
+    (3, 4, 1, 1, 300, 128, torch.float32, False, None, (0, 17, 300)),
+    (2, 2, 2, 64, 64, 32, torch.float32, False, None, None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,dtype,causal,window,kv_len",
+                         ATTN_CASES)
+def test_flash_attention_kernel_matches_plain(cuda_device, B, Hq, Hkv, Tq,
+                                              Tk, D, dtype, causal, window,
+                                              kv_len):
+    from repro_torch.kernels import flash_attention as fmod
+    q, k, v = _attn_inputs(B, Hq, Hkv, Tq, Tk, D, dtype, cuda_device,
+                           seed=Tq + Tk)
+    kl = (None if kv_len is None else
+          torch.tensor(kv_len, dtype=torch.int32, device=cuda_device))
+    before = fmod.launches
+    got = fmod.flash_attention(q, k, v, kl, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fmod.launches == before + 1
+    want = fmod.flash_attention_plain(q, k, v, kl, causal=causal,
+                                      window=window)
+    assert got.dtype == dtype
+    if dtype == torch.bfloat16:
+        _assert_one_bf16_step(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    if kv_len is not None and 0 in kv_len:
+        assert (got[kv_len.index(0)] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,T,K,V,bf16,init", [
+    (1, 40, 512, 64, 64, True, False),
+    (2, 3, 1, 64, 64, False, True),       # one decode step
+    (1, 2, 77, 32, 64, False, True),      # K != V, T not a chunk multiple
+])
+def test_wkv6_kernel_matches_plain(cuda_device, B, H, T, K, V, bf16, init):
+    from repro_torch.kernels import wkv6 as wmod
+    g = torch.Generator(device="cpu").manual_seed(T + K)
+
+    def n(*s, scale=0.5):
+        return (torch.randn(s, generator=g) * scale).to(cuda_device)
+    r, k, v = n(B, H, T, K), n(B, H, T, K), n(B, H, T, V)
+    if bf16:
+        r, k, v = (x.to(torch.bfloat16) for x in (r, k, v))
+    w = -torch.exp(n(B, H, T, K, scale=1.0))
+    u = n(H, K)
+    s0 = n(B, H, K, V) if init else None
+    before = wmod.launches
+    o, s = wmod.wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wmod.launches == before + 1
+    wo, ws = wmod.wkv6_plain(r, k, v, w, u, s0)
+    assert o.dtype == r.dtype and s.dtype == torch.float32
+    if bf16:
+        _assert_one_bf16_step(o, wo)
+    else:
+        torch.testing.assert_close(o, wo, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(s, ws, rtol=1e-4, atol=1e-4)

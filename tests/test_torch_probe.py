@@ -90,7 +90,7 @@ def _eq(got, want, name):
 @pytest.mark.parametrize("geom_name", sorted(GEOMS))
 def test_fused_probe_rank_torch_matches_reference_lax(geom_name):
     geom, trace, l1 = _mid_run(geom_name)
-    state = convert.tag_state(l1)
+    state = convert.tag_state(l1, device="cpu")
     ref_probe = jax.jit(functools.partial(ref_fused, geom))
     seen_local = seen_remote = False
     for t in range(WARM_ROUNDS, WARM_ROUNDS + PROBE_ROUNDS):
@@ -115,7 +115,7 @@ def test_fused_probe_rank_torch_matches_reference_lax(geom_name):
 def test_probe_backend_resolution():
     geom, trace, l1 = _mid_run("small")
     g, _, port_reqs = _both_requests(geom, trace)
-    state = convert.tag_state(l1)
+    state = convert.tag_state(l1, device="cpu")
     a = fused_probe_rank(g, state, port_reqs)            # CPU default
     b = fused_probe_rank(g, state, port_reqs, backend="torch")
     for x, y in zip(a, b):
@@ -135,7 +135,7 @@ def test_l1_stage_matches_reference(geom_name, arch):
     want = jax.jit(functools.partial(get_arch(arch).l1_stage, geom))(
         {k: jnp.asarray(v) for k, v in l1.items()}, ref_reqs, jnp.int32(t))
     got = parch.get_arch(arch).l1_stage(
-        g, convert.tag_state(l1), port_reqs,
+        g, convert.tag_state(l1, device="cpu"), port_reqs,
         torch.tensor(t, dtype=torch.int32))
     for name in want._fields:
         w = getattr(want, name)

@@ -84,8 +84,8 @@ def test_probe_matches_reference(policy, seed):
     want = ref_probe({k: jnp.asarray(v) for k, v in st.items()},
                      jnp.asarray(a), jnp.asarray(s), jnp.asarray(addr),
                      policy=ref.ReplacementPolicy[policy])
-    got = port.probe(convert.tag_state(st), _t(a), _t(s), _t(addr),
-                     policy=port.ReplacementPolicy[policy])
+    got = port.probe(convert.tag_state(st, device="cpu"), _t(a), _t(s),
+                     _t(addr), policy=port.ReplacementPolicy[policy])
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g[0].numpy(), np.asarray(w))
 
@@ -99,7 +99,8 @@ def test_probe_many_matches_reference(seed):
     want = ref_probe_many({k: jnp.asarray(v) for k, v in st.items()},
                           jnp.asarray(arrays), jnp.asarray(s),
                           jnp.asarray(addr))
-    got = port.probe_many(convert.tag_state(st), _t(arrays), _t(s), _t(addr))
+    got = port.probe_many(convert.tag_state(st, device="cpu"), _t(arrays),
+                          _t(s), _t(addr))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g[0].numpy(), np.asarray(w))
 
@@ -115,8 +116,8 @@ def test_touch_matches_reference(seed, set_dirty):
                      jnp.asarray(a), jnp.asarray(s), jnp.asarray(way),
                      jnp.int32(now), jnp.asarray(mask),
                      set_dirty=jnp.asarray(flag) if set_dirty else None)
-    got = port.touch(convert.tag_state(st), _t(a), _t(s), _t(way),
-                     torch.tensor(now, dtype=torch.int32), _t(mask),
+    got = port.touch(convert.tag_state(st, device="cpu"), _t(a), _t(s),
+                     _t(way), torch.tensor(now, dtype=torch.int32), _t(mask),
                      set_dirty=_t(flag) if set_dirty else None)
     _assert_state_equal(got, want)
 
@@ -133,7 +134,7 @@ def test_fill_matches_reference(seed, with_dirty):
         jnp.asarray(s), jnp.asarray(way), jnp.asarray(addr), jnp.int32(now),
         jnp.asarray(mask), dirty=jnp.asarray(flag) if with_dirty else None)
     got_st, got_ev = port.fill(
-        convert.tag_state(st), _t(a), _t(s), _t(way), _t(addr),
+        convert.tag_state(st, device="cpu"), _t(a), _t(s), _t(way), _t(addr),
         torch.tensor(now, dtype=torch.int32), _t(mask),
         dirty=_t(flag) if with_dirty else None)
     _assert_state_equal(got_st, want_st)
@@ -148,7 +149,8 @@ def test_batched_state_equals_per_point():
     rng = np.random.default_rng(5)
     states = [_state(rng) for _ in range(3)]
     reqs = [_requests(rng, st) for st in states]
-    big = {k: torch.cat([convert.tag_state(st)[k] for st in states])
+    big = {k: torch.cat([convert.tag_state(st, device="cpu")[k]
+                         for st in states])
            for k in states[0]}
     cols = [torch.from_numpy(np.stack(c)) for c in zip(*reqs)]
     a, s, addr, way, mask, flag = cols
@@ -158,7 +160,7 @@ def test_batched_state_equals_per_point():
                                       set_dirty=flag),
                            a, s, way, addr, now, mask, dirty=flag)
     for p, st in enumerate(states):
-        one = convert.tag_state(st)
+        one = convert.tag_state(st, device="cpu")
         r = [x[p:p + 1] for x in cols]
         h1, w1, d1 = port.probe(one, r[0], r[1], r[2])
         assert torch.equal(h1[0], hit[p]) and torch.equal(w1[0], pway[p])
