@@ -10,13 +10,16 @@ Phases (any failure raises, and the script exits non-zero with no
 result line):
 
 1. the card's name and power limit; build every kernel from ``csrc/``
-   (four), one ``nvcc`` per source, all started together;
+   (four), one ``nvcc`` per source, all started together; the count of
+   ``wgmma`` (HGMMA) and TMA-load (UTMALDG) instructions in the built
+   ``flash_attention`` library, where the toolkit has ``cuobjdump``;
 2. each kernel against its plain PyTorch version on the card, at its main
    path's shapes and harder ones, plus its timings: the two probes bit
    for bit; ``flash_attention`` and ``wkv6`` within a tolerance stated per
    dtype (the LM prefill and decode shapes, a window, odd T, f32,
    ``kv_len=0`` rows, K != V, chained halves, w=-20), beside
-   ``scaled_dot_product_attention``'s time;
+   ``scaled_dot_product_attention``'s time, the f32 attention kernel's
+   time and ``wkv6``'s time at T=1 (a decode step);
 3. the 8 pre-refactor goldens (cfd/HS3D x 4 paper architectures,
    192 rounds, kernel 1) through ``simulate`` on the card;
 4. the simulator's main path: ``run_suite()`` over all 10 apps x 53
@@ -200,7 +203,23 @@ def phase_build() -> dict:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
     log(f"build: {secs:.2f} s")
-    return {"build_s": secs}
+    sass = sass_counts(built["flash_attention"][0], ("HGMMA", "UTMALDG"))
+    log(f"flash_attention SASS: {sass} (wgmma and TMA-load instructions; "
+        "None where the toolkit has no cuobjdump)")
+    return {"build_s": secs, "flash_attention_sass": sass}
+
+
+def sass_counts(lib, opcodes) -> dict:
+    """How many times each opcode appears in the library's SASS, from
+    cuobjdump where the toolkit has it (else None)."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True, timeout=120).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return {op: sass.count(op) for op in opcodes}
 
 
 # ---------------------------------------------------------------------------
@@ -246,8 +265,9 @@ def time_ms(fn, n=200, warm=10) -> float:
 
 
 def kernel_device_ms(fn, name: str, n=100) -> float:
-    """Mean device time per launch of kernel ``name`` (torch.profiler);
-    None when the profiler shows no device time."""
+    """Mean device time per call of ``fn`` spent in the kernels whose
+    names hold ``name`` (torch.profiler); None when the profiler shows no
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -264,7 +284,7 @@ def kernel_device_ms(fn, name: str, n=100) -> float:
             count += ev.count
     if count == 0 or total <= 0:
         return None
-    return total / count / 1e3      # us -> ms
+    return total / n / 1e3      # us -> ms
 
 
 def device_kernels(prof) -> list:
@@ -962,13 +982,28 @@ def phase_flash_attention(device) -> dict:
     t = {"plain_ms_runs": [time_ms(plain, n=3, warm=1)],
          "library_ms_runs": [time_ms(library, n=20, warm=3)],
          "call_ms": time_ms(kernel, n=20, warm=2),
-         "device_ms": kernel_device_ms(kernel, "attn_kernel", n=10)}
+         "device_ms": kernel_device_ms(kernel, "attn_bf16_kernel", n=10)}
     t["library_ms_runs"].append(time_ms(library, n=20, warm=3))
     t["plain_ms_runs"].append(time_ms(plain, n=3, warm=1))
     t.update(plain_ms=sum(t["plain_ms_runs"]) / 2,
              library_ms=sum(t["library_ms_runs"]) / 2, bound_ms=bound_ms,
              bound_by=bound_by, bytes=nbytes, ops=ops, pairs=pairs)
     t["tflops"] = ops / ((t["device_ms"] or t["call_ms"]) * 1e-3) / 1e12
+    # the f32 CUDA-core kernel, at the f32 case
+    B, Hq, Hkv, Tq, Tk, D, dt, causal, window, kv_len = ATTN_CASES["f32"]
+    q32, k32, v32 = attn_inputs(B, Hq, Hkv, Tq, Tk, D, torch.float32, device,
+                                2)
+    f32 = lambda: fmod.flash_attention(q32, k32, v32, causal=causal)  # noqa: E731,E501
+    pairs32 = visible_pairs(B, Hq, Tq, Tk, causal, window, kv_len)
+    t["f32"] = {"shape": [B, Hq, Hkv, Tq, Tk, D],
+                "device_ms": kernel_device_ms(f32, "attn_f32_kernel", n=10),
+                "call_ms": time_ms(f32, n=10, warm=2),
+                "bound_ms": bound(4 * (2 * B * Hq * Tq * D + 2 * B * Hkv * Tk
+                                       * D), 4 * D * pairs32,
+                                  FP32_OPS_PER_S)[0]}
+    log(f"flash_attention f32 case {t['f32']['shape']}: kernel "
+        f"{t['f32']['device_ms']} ms on the device, bound "
+        f"{t['f32']['bound_ms']:.5f} ms (f32 operations)")
     log(f"flash_attention qwen3 prefill shape: kernel {t['device_ms']} ms on "
         f"the device, {t['call_ms']:.4f} ms per call ({t['tflops']:.1f} "
         f"TFLOP/s); plain {t['plain_ms_runs']} ms; SDPA "
@@ -1038,14 +1073,34 @@ def phase_wkv6(device) -> dict:
     bound_ms, bound_by = bound(nbytes, ops, FP32_OPS_PER_S)
     t = {"plain_ms_runs": [time_ms(plain, n=1, warm=0)],
          "call_ms": time_ms(kernel, n=20, warm=2),
-         "device_ms": kernel_device_ms(kernel, "wkv6_kernel", n=10)}
+         # the chunked kernel's three passes
+         "device_ms": kernel_device_ms(kernel, "wkv6_", n=10)}
+    t["passes_ms"] = {name: kernel_device_ms(kernel, name, n=10) for name in
+                      ("wkv6_chunk_state_kernel", "wkv6_state_scan_kernel",
+                       "wkv6_chunk_kernel")}
     t["plain_ms_runs"].append(time_ms(plain, n=1, warm=0))
     t.update(plain_ms=sum(t["plain_ms_runs"]) / 2, bound_ms=bound_ms,
              bound_by=bound_by, bytes=nbytes, ops=ops)
+    # T=1 from an initial state, 40 heads: the decode step ModelServer
+    # launches, on the step-by-step kernel; its bound counts bytes, each
+    # input read once (s0 f32 included) and each output written once
+    step = lambda: wmod.wkv6(*x1, s0)  # noqa: E731
+    t1_bytes = (H * (2 * K + 2 * K + 2 * K + 4 * K) + H * K * 4
+                + 2 * H * K * K * 4 + H * K * 2)
+    t1_ops = H * (5 * K * K + 3 * K + 2 * K)
+    t["t1"] = {"device_ms": kernel_device_ms(step, "wkv6_step_kernel",
+                                             n=50),
+               "call_ms": time_ms(step, n=50, warm=5), "bytes": t1_bytes,
+               "ops": t1_ops}
+    t["t1"]["bound_ms"], t["t1"]["bound_by"] = bound(t1_bytes, t1_ops,
+                                                     FP32_OPS_PER_S)
+    log(f"wkv6 T=1 (40 heads, initial state): kernel {t['t1']['device_ms']}"
+        f" ms on the device, {t['t1']['call_ms']:.4f} ms per call; bound "
+        f"{t['t1']['bound_ms']:.6f} ms ({t['t1']['bound_by']}: {t1_bytes} B)")
     log(f"wkv6 rwkv6 prefill shape: kernel {t['device_ms']} ms on the "
         f"device, {t['call_ms']:.4f} ms per call; plain {t['plain_ms_runs']}"
-        f" ms; bound {bound_ms:.5f} ms ({bound_by}: {nbytes} B, {ops} f32 "
-        "flops)")
+        f" ms (passes: {t['passes_ms']}); bound {bound_ms:.5f} ms "
+        f"({bound_by}: {nbytes} B, {ops} f32 flops)")
     return {"max_abs_err": worst, "cases": cases, "timing": t}
 
 
@@ -1431,6 +1486,7 @@ def main() -> int:
         "ms": t["device_ms"] if t["device_ms"] is not None else t["call_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "f32_ms": t["f32"]["device_ms"],
     })
     t = report["wkv6"]["timing"]
     kernels.append({
@@ -1442,6 +1498,7 @@ def main() -> int:
         "ms": t["device_ms"] if t["device_ms"] is not None else t["call_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
+        "t1_ms": t["t1"]["device_ms"], "t1_bound_ms": t["t1"]["bound_ms"],
     })
     REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps(report, indent=1, default=str) + "\n")

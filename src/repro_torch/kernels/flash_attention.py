@@ -14,13 +14,18 @@ sees no key comes back as zeros.
 What bounds it on an H100: operations. At the qwen3-0.6b prefill shape
 (B=1, Hq=16, Hkv=8, T=4096, D=128, causal) one launch does 4*D flops on
 each of 134M visible pairs (69 GFLOP) against 50 MB of q/k/v/o. The
-design (``csrc/flash_attention.cu``) is the simplest right one: one CTA
-per (64 query rows, head, batch) walks the KV axis in tiles of 64 keys
-staged in shared memory, skipping tiles its rows cannot see, with an
-online softmax in f32 on the CUDA cores. Tensor cores (``wgmma``), TMA
-and warp specialisation are for a later redesign. The TPU kernel's
-``Tq % bq`` restriction was a tiling rule, not semantics: any Tq and Tk
-work here.
+design (``csrc/flash_attention.cu``) has two kernels. bf16 inputs, every
+launch of the served models, go to a tensor-core kernel: TMA loads Q
+once and K/V tiles of 64 keys through a ring of shared-memory stages,
+``wgmma`` computes S = QK^T in f32, the online softmax runs in f32, and P
+is split as ``p_hi + p_lo`` (two bf16 operands) for the P@V product, which
+keeps the result within one bf16 rounding step of the f32 function.
+The tensor maps are encoded per call from the tensors' real strides, so
+TMA's rules apply: 16-byte aligned base addresses and b/h/t strides that
+are 16-byte multiples; the wrapper raises on anything else and never
+copies. f32 inputs go to a CUDA-core kernel that does every product in
+f32, as the TPU kernel does. The TPU kernel's ``Tq % bq`` restriction was
+a tiling rule, not semantics: any Tq and Tk work here.
 
 :func:`flash_attention_plain` is the plain PyTorch version (a port of
 ``repro/kernels/ref.py::attention_len_ref``, with zeros for fully masked
@@ -98,11 +103,34 @@ def _check(q, k, v, kv_len, window):
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={k.shape[1]}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    if q.dtype == torch.bfloat16:
+        _check_tma(q, k, v)
     if kv_len is not None and (kv_len.shape != (B,) or kv_len.dtype !=
                                torch.int32 or kv_len.device != q.device
                                or not kv_len.is_contiguous()):
         raise ValueError("kv_len must be a contiguous (B,) int32 tensor on "
                          "q's device")
+
+
+def _tma_strides(x):
+    """x's (b, h, t) strides. A dim of size 1 is never stepped along, so
+    its stride is free: it takes D, a 16-byte multiple in bf16 for every
+    head dim the kernel takes (TMA's rule)."""
+    return [st if n > 1 else x.shape[-1]
+            for n, st in zip(x.shape[:3], x.stride()[:3])]
+
+
+def _check_tma(q, k, v):
+    """TMA's rules for the bf16 kernel's tensor maps: 16-byte aligned
+    base addresses and 16-byte multiple strides."""
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}'s base address is not 16-byte aligned "
+                             "(TMA)")
+        for dim, stride in zip("bht", _tma_strides(x)):
+            if (stride * x.element_size()) % 16:
+                raise ValueError(f"{name}'s {dim} stride ({stride} elements)"
+                                 " is not a 16-byte multiple (TMA)")
 
 
 @functools.lru_cache(maxsize=None)
@@ -121,8 +149,9 @@ def flash_attention(q, k, v, kv_len=None, *, causal: bool = True,
 
     CPU tensors take :func:`flash_attention_plain`. CUDA tensors launch
     the Hopper kernel: q, k, v of one dtype (f32 or bf16), D in
-    :data:`HEAD_DIMS`, any strides with a unit last one; kv_len a (B,)
-    int32 tensor or None. Returns (B, Hq, Tq, D) in q's dtype.
+    :data:`HEAD_DIMS`, any strides with a unit last one (bf16: 16-byte
+    aligned, see :func:`_check_tma`); kv_len a (B,) int32 tensor or None.
+    Returns (B, Hq, Tq, D) in q's dtype.
     """
     global launches
     if q.device.type == "cpu":
@@ -142,8 +171,8 @@ def flash_attention(q, k, v, kv_len=None, *, causal: bool = True,
         err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if kv_len is None else kv_len.data_ptr(), o.data_ptr(),
-            B, Hq, Hkv, Tq, Tk, D, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], int(causal), 0 if window is None else window,
+            B, Hq, Hkv, Tq, Tk, D, *_tma_strides(q), *_tma_strides(k),
+            *_tma_strides(v), int(causal), 0 if window is None else window,
             D ** -0.5, int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

@@ -178,3 +178,125 @@ def test_wrapper_takes_plain_version_only_on_cpu():
         kmod.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
     with pytest.raises(ValueError, match="impl must be one of"):
         ops.attention(q, q, q, impl="pallas")
+
+
+# ---------------------------------------------------------------------------
+# The bf16 Hopper kernel's arithmetic, emulated on the CPU. The kernel
+# (csrc/flash_attention.cu) computes S = QK^T from bf16 operands with f32
+# accumulation, scales S by D^-0.5 in f32 after the product, runs the
+# online softmax in f32 over tiles of 64 keys (base 2), and multiplies P
+# by V on the tensor cores with P split as p_hi + p_lo, two bf16
+# operands. The emulation below does the same, and is held within one
+# bf16 rounding step of the plain version and of the Pallas kernel: the
+# criterion that chip_smoke.py and the GPU tests hold the kernel to.
+# ---------------------------------------------------------------------------
+LOG2E = 1.4426950408889634
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def emulate_bf16_kernel(q, k, v, kv_len=None, *, causal=True, window=None,
+                        split=True, tile=64):
+    """q (B,Hq,Tq,D), k/v (B,Hkv,Tk,D) bf16 -> (B,Hq,Tq,D) bf16."""
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    kf = kf.repeat_interleave(g, 1)
+    vf = vf.repeat_interleave(g, 1)
+    qpos = torch.arange(Tq)[:, None] + (Tk - Tq)
+    lens = [Tk] * B if kv_len is None else [int(n) for n in kv_len]
+    m = torch.full((B, Hq, Tq, 1), float("-inf"))
+    l = torch.zeros((B, Hq, Tq, 1))
+    o = torch.zeros((B, Hq, Tq, D))
+    for k0 in range(0, Tk, tile):
+        kpos = torch.arange(k0, min(k0 + tile, Tk))[None, :]
+        s = qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)    # f32 sum
+        s = s * (D ** -0.5 * LOG2E)
+        ok = torch.ones((Tq, kpos.shape[1]), dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window is not None:
+            ok &= kpos > qpos - window
+        ok = ok[None, None] & (kpos < torch.tensor(lens)[:, None, None,
+                                                          None])
+        s = s.masked_fill(~ok, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        mu = torch.where(m_new == float("-inf"), 0.0, m_new)
+        corr = torch.exp2(m - mu)
+        p = torch.exp2(s - mu)
+        l = l * corr + p.sum(-1, keepdim=True)
+        m = m_new
+        p_hi = _bf16(p)
+        pv = p_hi @ vf[:, :, k0:k0 + tile]
+        if split:
+            pv = pv + _bf16(p - p_hi) @ vf[:, :, k0:k0 + tile]
+        o = o * corr + pv
+    o = torch.where(l == 0, 0.0, o / torch.where(l == 0, 1.0, l))
+    return o.to(torch.bfloat16)
+
+
+def bf16_steps_apart(got, want, atol=1e-5):
+    """Elements of bf16 ``got`` and ``want`` more than one bf16 rounding
+    step of the larger magnitude (+ atol, f32 noise near 0) apart: the
+    criterion of chip_smoke.check_bf16_step."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs())
+    _, e = torch.frexp(mag)
+    step = torch.where(mag > 0, torch.ldexp(torch.ones_like(mag), e - 8),
+                       torch.zeros_like(mag))
+    return int(((g - w).abs() > step + atol).sum())
+
+
+def _bf16_inputs(seed, B, Hq, Hkv, Tq, Tk, D):
+    q, k, v = _arrays(seed, (B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D))
+    return [_both(a, "bfloat16") for a in (q, k, v)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,bq,bk,causal,window", SWEEP)
+def test_bf16_kernel_arithmetic_within_one_step(B, Hq, Hkv, Tq, Tk, D, bq,
+                                                bk, causal, window):
+    (jq, tq), (jk, tk), (jv, tv) = _bf16_inputs(Tq + Tk + D, B, Hq, Hkv,
+                                                Tq, Tk, D)
+    got = emulate_bf16_kernel(tq, tk, tv, causal=causal, window=window)
+    plain = kmod.flash_attention_plain(tq, tk, tv, causal=causal,
+                                       window=window)
+    pallas = pallas_flash(jq, jk, jv, causal=causal, window=window, bq=bq,
+                          bk=bk)
+    pallas = torch.from_numpy(np.array(jnp.asarray(pallas, jnp.float32)))
+    assert bf16_steps_apart(got, plain) == 0
+    assert bf16_steps_apart(got, pallas) == 0
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal,window,kv_len", [
+    (2, 4, 2, 32, 128, 64, True, None, (37, 100)),       # kv_len
+    (2, 4, 2, 1, 128, 64, False, None, (0, 77)),         # Tq=1, a 0 row
+    (1, 4, 2, 193, 193, 32, True, None, None),           # ragged T
+    (1, 4, 1, 37, 101, 32, True, 16, None),              # Tq < Tk, window
+])
+def test_bf16_kernel_arithmetic_ragged_and_kv_len(B, Hq, Hkv, Tq, Tk, D,
+                                                  causal, window, kv_len):
+    (_, tq), (_, tk), (_, tv) = _bf16_inputs(Tq * Tk + D, B, Hq, Hkv, Tq,
+                                             Tk, D)
+    kl = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32)
+    got = emulate_bf16_kernel(tq, tk, tv, kv_len, causal=causal,
+                              window=window)
+    plain = kmod.flash_attention_plain(tq, tk, tv, kl, causal=causal,
+                                       window=window)
+    assert bf16_steps_apart(got, plain) == 0
+    if kv_len is not None and 0 in kv_len:
+        assert (got[kv_len.index(0)] == 0).all()
+
+
+def test_single_bf16_p_is_not_enough():
+    """Why the kernel splits P: rounding P to one bf16 operand, as SDPA
+    and FlashAttention do, leaves outputs more than one bf16 step from the
+    f32 function at a small causal shape; the split leaves none."""
+    (_, tq), (_, tk), (_, tv) = _bf16_inputs(17, 1, 4, 2, 512, 512, 128)
+    plain = kmod.flash_attention_plain(tq, tk, tv, causal=True)
+    one = emulate_bf16_kernel(tq, tk, tv, causal=True, split=False)
+    two = emulate_bf16_kernel(tq, tk, tv, causal=True, split=True)
+    assert bf16_steps_apart(one, plain) > 0
+    assert bf16_steps_apart(two, plain) == 0

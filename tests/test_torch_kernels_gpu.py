@@ -204,3 +204,146 @@ def test_wkv6_kernel_matches_plain(cuda_device, B, H, T, K, V, bf16, init):
     else:
         torch.testing.assert_close(o, wo, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(s, ws, rtol=1e-4, atol=1e-4)
+
+
+#: bf16, the tensor-core kernel: (B, Hq, Hkv, Tq, Tk, D, causal, window,
+#: kv_len); head dims 32/64/128, GQA groups 1/2/4, Tq 1/193/4096
+BF16_ATTN_CASES = [
+    (1, 16, 8, 4096, 4096, 128, True, None, None),     # qwen3 prefill
+    (2, 8, 2, 193, 193, 64, True, None, None),         # group 4, ragged
+    (1, 4, 4, 193, 300, 32, True, 64, None),           # group 1, window
+    (3, 16, 8, 1, 300, 128, False, None, (0, 17, 300)),  # decode, 0 row
+    (2, 4, 1, 100, 257, 64, False, None, (256, 3)),    # group 4, kv_len
+    (1, 6, 2, 130, 130, 32, True, None, None),         # group 3 (odd)
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal,window,kv_len",
+                         BF16_ATTN_CASES)
+def test_flash_attention_bf16_tensor_core_kernel(cuda_device, B, Hq, Hkv,
+                                                 Tq, Tk, D, causal, window,
+                                                 kv_len):
+    from repro_torch.kernels import flash_attention as fmod
+    q, k, v = _attn_inputs(B, Hq, Hkv, Tq, Tk, D, torch.bfloat16,
+                           cuda_device, seed=Tq + Tk + D)
+    kl = (None if kv_len is None else
+          torch.tensor(kv_len, dtype=torch.int32, device=cuda_device))
+    before = fmod.launches
+    got = fmod.flash_attention(q, k, v, kl, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fmod.launches == before + 1
+    want = fmod.flash_attention_plain(q, k, v, kl, causal=causal,
+                                      window=window)
+    assert got.dtype == torch.bfloat16
+    _assert_one_bf16_step(got, want)
+    if kv_len is not None and 0 in kv_len:
+        assert (got[kv_len.index(0)] == 0).all()
+
+
+@pytest.mark.gpu
+def test_flash_attention_bf16_model_views(cuda_device):
+    """The model hands (B,T,H,D) tensors transposed to (B,H,T,D): the
+    tensor maps take their strides, no copy is made."""
+    from repro_torch.kernels import flash_attention as fmod
+    g = torch.Generator(device="cpu").manual_seed(3)
+    B, T, Hq, Hkv, D = 2, 300, 16, 8, 128
+    q, k, v = (torch.randn((B, T, h, D), generator=g).to(
+        device=cuda_device, dtype=torch.bfloat16).transpose(1, 2)
+        for h in (Hq, Hkv, Hkv))
+    assert not q.is_contiguous()
+    got = fmod.flash_attention(q, k, v, causal=True)
+    want = fmod.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    _assert_one_bf16_step(got, fmod.flash_attention_plain(q, k, v))
+
+
+@pytest.mark.gpu
+def test_flash_attention_bf16_raises_on_tma_stride(cuda_device):
+    from repro_torch.kernels import flash_attention as fmod
+    q = torch.zeros((1, 2, 64, 70), dtype=torch.bfloat16,
+                    device=cuda_device)[..., :64]      # t stride 140 B
+    k = torch.zeros((1, 2, 64, 64), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        fmod.flash_attention(q, k, k)
+    base = torch.zeros(2 * 64 * 64 + 1, dtype=torch.bfloat16,
+                       device=cuda_device)
+    q2 = base[1:].view(1, 2, 64, 64)                   # base 2 B off
+    with pytest.raises(ValueError, match="16-byte"):
+        fmod.flash_attention(q2, k, k)
+
+
+@pytest.mark.gpu
+def test_flash_attention_f32_stays_on_cuda_cores(cuda_device):
+    """f32 inputs keep the f32 CUDA-core kernel, at the f32 tolerance."""
+    from repro_torch.kernels import flash_attention as fmod
+    q, k, v = _attn_inputs(1, 16, 8, 512, 512, 128, torch.float32,
+                           cuda_device, seed=5)
+    got = fmod.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = fmod.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_flash_attention_library_has_tensor_core_and_tma_code(cuda_device):
+    """The built library's SASS holds wgmma (HGMMA) and TMA loads
+    (UTMALDG), where the toolkit has cuobjdump."""
+    import shutil
+    import subprocess
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib, _ = build.build("flash_attention")
+    try:
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        pytest.skip("cuobjdump is not available")
+    assert "HGMMA" in sass and "UTMALDG" in sass
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,T,K,V,init", [
+    (1, 40, 1, 64, 64, True),        # a decode step: the step kernel
+    (1, 8, 63, 64, 64, True),
+    (1, 8, 64, 64, 64, False),       # one chunk: still the step kernel
+    (2, 3, 65, 64, 64, True),        # a ragged tail of one row
+    (1, 40, 4096, 64, 64, False),    # rwkv6-3b prefill
+    (2, 3, 300, 32, 64, True),       # K != V
+])
+def test_wkv6_chunked_kernel_matches_plain(cuda_device, B, H, T, K, V, init):
+    from repro_torch.kernels import wkv6 as wmod
+    g = torch.Generator(device="cpu").manual_seed(T + K)
+
+    def n(*s, scale=0.5):
+        return (torch.randn(s, generator=g) * scale).to(cuda_device)
+    r, k, v = (n(B, H, T, d).to(torch.bfloat16) for d in (K, K, V))
+    w = -torch.exp(n(B, H, T, K, scale=1.0))
+    u = n(H, K)
+    s0 = n(B, H, K, V) if init else None
+    o, s = wmod.wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    wo, ws = wmod.wkv6_plain(r, k, v, w, u, s0)
+    _assert_one_bf16_step(o, wo)
+    torch.testing.assert_close(s, ws, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_wkv6_chained_halves_equal_whole(cuda_device):
+    from repro_torch.kernels import wkv6 as wmod
+    g = torch.Generator(device="cpu").manual_seed(11)
+    B, H, T, K = 1, 8, 1000, 64
+    r, k, v = (torch.randn((B, H, T, K), generator=g).mul(0.5).to(
+        cuda_device, torch.bfloat16) for _ in range(3))
+    w = -torch.exp(torch.randn((B, H, T, K), generator=g)).to(cuda_device)
+    u = torch.randn((H, K), generator=g).to(cuda_device)
+    o, s = wmod.wkv6(r, k, v, w, u)
+    h = 437
+    o1, s1 = wmod.wkv6(r[:, :, :h], k[:, :, :h], v[:, :, :h], w[:, :, :h], u)
+    o2, s2 = wmod.wkv6(r[:, :, h:], k[:, :, h:], v[:, :, h:], w[:, :, h:], u,
+                       s1)
+    torch.cuda.synchronize()
+    _assert_one_bf16_step(torch.cat([o1, o2], 2), o)
+    torch.testing.assert_close(s2, s, rtol=1e-4, atol=1e-4)

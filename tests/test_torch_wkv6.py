@@ -144,3 +144,90 @@ def test_routes():
     meta = [a.to("meta") for a in t]
     with pytest.raises(ValueError, match="cuda or cpu"):
         kmod.wkv6(*meta)
+
+
+# ---------------------------------------------------------------------------
+# The chunked Hopper kernel's arithmetic, emulated on the CPU. The kernel
+# (csrc/wkv6.cu) runs the TPU kernel's chunked form over chunks of 64
+# steps with a ragged, zero-padded tail: w scaled to base 2 and its
+# cumsum carried as two floats (emulated here by an f64 cumsum split into
+# hi + lo), the intra-chunk matrix with every exponent masked before
+# exp2, factored through the pivot row 31 where s < 32 <= t, the bonus
+# on its diagonal, the inter-chunk product with the state and the state
+# update. The rows of a chunk are split over four CTAs (t mod 4); the
+# split does not change the arithmetic of a row, so the emulation runs
+# them together.
+# ---------------------------------------------------------------------------
+LOG2E = 1.4426950408889634
+
+
+def emulate_chunked_kernel(r, k, v, w, u, s0=None, L=64, pivot=31):
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    r, k, v, w = (x.float() for x in (r, k, v, w))
+    S = (torch.zeros(B, H, K, V) if s0 is None else s0.clone().float())
+    outs = []
+    for t0 in range(0, T, L):
+        n = min(L, T - t0)
+
+        def pad(x):
+            return torch.nn.functional.pad(x[:, :, t0:t0 + n],
+                                           (0, 0, 0, L - n))
+        rc, kc, vc, wc = pad(r), pad(k), pad(v), pad(w * LOG2E)
+        c64 = torch.cumsum(wc.double(), 2)
+        hi = c64.float()
+        lo = (c64 - hi.double()).float()
+
+        def diff(a_hi, a_lo, b_hi, b_lo):     # (a - b) from the two floats
+            return (a_hi - b_hi) + (a_lo - b_lo)
+        zero = torch.zeros_like(hi[:, :, :1])
+        p_hi = torch.cat([zero, hi[:, :, :-1]], 2)     # c_prev = c[t-1]
+        p_lo = torch.cat([zero, lo[:, :, :-1]], 2)
+        t_idx = torch.arange(L)[:, None]
+        s_idx = torch.arange(L)[None, :]
+        # direct terms: s < t in the same half
+        e = diff(p_hi[:, :, :, None], p_lo[:, :, :, None],
+                 hi[:, :, None], lo[:, :, None])          # (B,H,t,s,K)
+        same = (s_idx < t_idx) & ((s_idx > pivot) == (t_idx > pivot))
+        e = torch.where(same[None, None, :, :, None], e,
+                        torch.tensor(float("-inf")))
+        A = (rc[:, :, :, None] * kc[:, :, None] * torch.exp2(e)).sum(-1)
+        # s <= pivot < t: through the pivot row, both factors <= 1
+        ph, pl = hi[:, :, pivot:pivot + 1], lo[:, :, pivot:pivot + 1]
+        rf = rc * torch.exp2(diff(p_hi, p_lo, ph, pl))
+        kf = kc * torch.exp2(diff(ph, pl, hi, lo))
+        cross = (s_idx <= pivot) & (t_idx > pivot)
+        A = A + torch.where(cross[None, None], rf @ kf.transpose(-1, -2),
+                            0.0)
+        A = A + torch.diag_embed((rc * u[None, :, None] * kc).sum(-1))
+        rd = rc * torch.exp2(p_hi + p_lo)
+        outs.append((rd @ S + A @ vc)[:, :, :n])
+        kd = kc * torch.exp2(diff(hi[:, :, -1:], lo[:, :, -1:], hi, lo))
+        S = (torch.exp2(hi[:, :, -1] + lo[:, :, -1])[..., None] * S
+             + kd.transpose(-1, -2) @ vc)
+    o = torch.cat(outs, 2) if outs else torch.zeros(B, H, 0, V)
+    return o, S
+
+
+@pytest.mark.parametrize("T", [1, 64, 65, 128, 200])
+@pytest.mark.parametrize("decay", [None, -20.0])
+def test_chunked_kernel_arithmetic(T, decay):
+    """The chunked kernel's arithmetic against the plain version and,
+    where T is a multiple of the chunk, the Pallas kernel."""
+    B, H, K, V = 1, 2, 64, 64
+    x = _inputs(T + (7 if decay else 0), B, H, T, K, V, decay=decay)
+    s0 = np.random.default_rng(T).standard_normal((B, H, K, V)).astype(
+        np.float32)
+    got = emulate_chunked_kernel(*_t(x), torch.from_numpy(s0))
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    want = kmod.wkv6_plain(*_t(x), torch.from_numpy(s0))
+    wants = [want]
+    if T % 64 == 0:
+        wants.append(pallas_wkv6(*_j(x), jnp.asarray(s0), chunk=64))
+    _check(got, *wants)
+
+
+def test_chunked_kernel_arithmetic_k_not_v():
+    x = _inputs(3, 2, 3, 130, 32, 64)
+    _check(emulate_chunked_kernel(*_t(x)), kmod.wkv6_plain(*_t(x)),
+           ref.wkv6_ref(*_j(x)))
