@@ -6,8 +6,8 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-Phases (any failure raises, and the script exits non-zero with no
-result line):
+Phases (a phase that fails is reported and the others still run; the
+script then exits non-zero with no result line):
 
 1. the card's name and power limit; build every kernel from ``csrc/``
    (four), one ``nvcc`` per source, all started together; the count of
@@ -43,7 +43,9 @@ result line):
    on the "kernel" route, launch counters zeroed just before and read
    just after, held against the "ref" route;
 8. LM decode: 64 teacher-forced ``decode_step`` calls against
-   ``forward``, and a profiled decode step;
+   ``forward``, and a profiled decode step; for rwkv6 also against a
+   forward whose WKV6 is exact (f64), with per-layer counts of the bf16
+   WKV6 outputs that differ from the exact ones;
 9. ``ModelServer`` at the reference launcher's defaults (16 requests, 4
    shards, block 16, 8 decode steps, ``ata``) for both models, launch
    counters zeroed just before and read just after: the directory's
@@ -61,6 +63,7 @@ import math
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -1048,6 +1051,9 @@ def phase_wkv6(device) -> dict:
     check("decode_T1", wmod.wkv6(*x1, s0), wmod.wkv6_plain(*x1, s0))
     x2 = wkv6_inputs(2, 4, 300, 32, 64, device, 2)
     check("K32_V64", wmod.wkv6(*x2), wmod.wkv6_plain(*x2))
+    # one chunk, the length of the LM decode check's forward
+    x4 = wkv6_inputs(1, H, DECODE_TOKENS, K, K, device, 4)
+    check("one_chunk_T64", wmod.wkv6(*x4, s0), wmod.wkv6_plain(*x4, s0))
     # two halves chained through the state equal the whole
     r, k, v, w, u = x
     h = LM_SEQ // 2
@@ -1277,19 +1283,72 @@ def profile_decode(cfg, params, cache, token, steps=8) -> dict:
                 for d, c, k in sorted(per_kernel, reverse=True)[:6]]}
 
 
+def wkv6_f64(r, k, v, w, u, s0):
+    """The WKV6 recurrence in f64 (``wkv6_plain``'s loop) from the state
+    s0, o rounded once to r's dtype and the state to f32: what a kernel
+    that made no f32 rounding error would return."""
+    import torch
+    rf, kf, vf, wf = (x.double() for x in (r, k, v, w))
+    uu = u.double()[None, :, :, None]
+    S = s0.double()
+    outs = []
+    for t in range(r.shape[2]):
+        kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, :, t], S + uu * kv))
+        S = torch.exp(wf[:, :, t])[..., None] * S + kv
+    return torch.stack(outs, 2).to(r.dtype), S.float()
+
+
+def exact_wkv6_forward(params, cfg, tokens) -> tuple:
+    """``forward`` with every layer's WKV6 taken in f64 (``wkv6_f64``),
+    and, layer by layer on the same inputs, how many bf16 outputs of the
+    kernel (one call over the T tokens) and of T chained T=1 kernel calls
+    (what ``decode_step`` launches) differ from it."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    kernel = ops.wkv6_kernel
+    flips = {"kernel": [], "decode_chain": [], "kernel_vs_decode_chain": []}
+
+    def layer(r, k, v, w, u, s0, **kw):
+        want = wkv6_f64(r, k, v, w, u, s0)
+        got = kernel(r, k, v, w, u, s0)[0]
+        s, outs = s0, []
+        for t in range(r.shape[2]):
+            o, s = kernel(*(x[:, :, t:t + 1] for x in (r, k, v, w)), u, s)
+            outs.append(o)
+        chain = torch.cat(outs, 2)
+        for key, a, b in (("kernel", got, want[0]),
+                          ("decode_chain", chain, want[0]),
+                          ("kernel_vs_decode_chain", got, chain)):
+            flips[key].append(int((a != b).sum()))
+        return want
+
+    ops.wkv6_kernel = layer
+    try:
+        logits, _ = T.forward(params, cfg, tokens)
+    finally:
+        ops.wkv6_kernel = kernel
+    return logits, flips
+
+
 def phase_lm_decode(device) -> dict:
     """The reference's decode-vs-forward check at full width: teacher-force
     64 tokens through ``decode_step`` against ``forward``'s logits, in f32
     as the reference runs it (rel < 2e-2) and in bf16, the configs' dtype
-    (within DECODE_BF16_TOL); then a profiled bf16 decode step."""
+    (within DECODE_BF16_TOL); then a profiled bf16 decode step. For
+    rwkv6, beside the bf16 reading: the same check against a forward whose
+    WKV6 is exact (``exact_wkv6_forward``), with its per-layer counts of
+    bf16 outputs that differ. Every model is read and profiled before a
+    failed check raises."""
     import dataclasses
     import torch
     from repro_torch.models import transformer as T
-    out = {}
+    out, failed = {}, []
     for arch in LM_ARCHS:
         cfg, master, served = lm_model(arch, device)
         tokens = lm_tokens(cfg, DECODE_TOKENS, seed=1).to(device)
-        res, full = {}, {}
+        res, full, dec = {}, {}, {}
         for dt in ("float32", "bfloat16"):
             c = dataclasses.replace(cfg, dtype=dt)
             params = served if dt == cfg.dtype else master
@@ -1303,21 +1362,30 @@ def phase_lm_decode(device) -> dict:
                                           cache)
                 outs.append(lg[:, 0])
             torch.cuda.synchronize()
-            res[dt] = {"rel_err_vs_forward":
-                       rel_err(torch.stack(outs, 1), full[dt]),
+            dec[dt] = torch.stack(outs, 1)
+            res[dt] = {"rel_err_vs_forward": rel_err(dec[dt], full[dt]),
                        "wall_ms_per_token":
                        (time.perf_counter() - t0) * 1e3 / DECODE_TOKENS}
         noise = rel_err(full["bfloat16"], full["float32"])
         tol16 = DECODE_BF16_TOL
+        exact = None
+        if arch == "rwkv6-3b":
+            lg, flips = exact_wkv6_forward(served, cfg, tokens)
+            exact = {"rel_err_vs_decode": rel_err(dec["bfloat16"], lg),
+                     "rel_err_vs_forward": rel_err(lg, full["bfloat16"]),
+                     "flips_total": {k: sum(v) for k, v in flips.items()},
+                     "flips_per_layer": flips,
+                     "outputs_per_layer": DECODE_TOKENS * cfg.d_model}
+            del lg
         if not res["float32"]["rel_err_vs_forward"] < DECODE_REL_TOL:
-            raise AssertionError(f"{arch}: f32 decode vs forward {res}")
+            failed.append(f"{arch}: f32 decode vs forward {res}")
         if not res["bfloat16"]["rel_err_vs_forward"] <= tol16:
-            raise AssertionError(f"{arch}: bf16 decode vs forward {res}, "
-                                 f"tol {tol16}")
+            failed.append(f"{arch}: bf16 decode vs forward {res}, tol "
+                          f"{tol16}; forward with an exact WKV6: {exact}")
         prof = profile_decode(cfg, served, cache, tokens[:, -1:])
         out[arch] = {"f32": res["float32"], "bf16": res["bfloat16"],
                      "bf16_forward_vs_f32": noise, "bf16_tol": tol16,
-                     "profile": prof}
+                     "bf16_exact_wkv6": exact, "profile": prof}
         log(f"{arch} decode: {DECODE_TOKENS} teacher-forced tokens vs "
             f"forward rel {res['float32']['rel_err_vs_forward']:.3g} in f32 "
             f"(tol {DECODE_REL_TOL}), "
@@ -1328,8 +1396,17 @@ def phase_lm_decode(device) -> dict:
             f"busy {prof['device_busy_ms_per_token']:.3f} ms "
             f"({100 * prof['device_busy_share']:.1f}%), "
             f"{prof['launches_per_token']:.0f} launches per token")
+        if exact is not None:
+            log(f"{arch} bf16 decode vs a forward with an exact (f64) WKV6: "
+                f"rel {exact['rel_err_vs_decode']:.3g} (that forward vs the "
+                f"kernel's: {exact['rel_err_vs_forward']:.3g}); bf16 WKV6 "
+                f"outputs unlike the exact ones, summed over "
+                f"{cfg.n_layers} layers of {exact['outputs_per_layer']}: "
+                f"{exact['flips_total']}")
         for k, ms, c in prof["top_kernels_ms_per_token"]:
             log(f"  {ms:.4f} ms/token  x{c:.1f}  {k}")
+    if failed:
+        raise AssertionError("; ".join(failed))
     return out
 
 
@@ -1433,7 +1510,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    phases, report = {}, {"card": card}
+    phases, report, failed = {}, {"card": card}, {}
     for name, fn in (("build", phase_build),
                      ("kernels", lambda: phase_kernels(device)),
                      ("tag_probe", lambda: phase_tag_probe(device)),
@@ -1448,10 +1525,22 @@ def main() -> int:
                      ("lm_decode", lambda: phase_lm_decode(device)),
                      ("lm_serve", lambda: phase_lm_serve(device))):
         t0 = time.perf_counter()
-        report[name] = fn()
+        try:
+            report[name] = fn()
+        except Exception as e:  # reported; the run fails after the rest
+            traceback.print_exc()
+            failed[name] = f"{type(e).__name__}: {e}"
+            log(f"phase {name} FAILED: {failed[name]}")
         phases[name] = time.perf_counter() - t0
         log(f"phase {name}: {phases[name]:.2f} s")
     report["phase_s"] = phases
+    REPORT.parent.mkdir(exist_ok=True)
+    if failed:
+        report["failed"] = failed
+        REPORT.write_text(json.dumps(report, indent=1, default=str) + "\n")
+        log(json.dumps({"phase_s": phases}))
+        log(f"chip_smoke: {len(failed)} phase(s) failed: {sorted(failed)}")
+        return 1
 
     t = report["kernels"]["timings"]["P46_R120"]
     kernels = [{
@@ -1500,7 +1589,6 @@ def main() -> int:
         "bound_by": t["bound_by"], "library_ms": None,
         "t1_ms": t["t1"]["device_ms"], "t1_bound_ms": t["t1"]["bound_ms"],
     })
-    REPORT.parent.mkdir(exist_ok=True)
     REPORT.write_text(json.dumps(report, indent=1, default=str) + "\n")
     log(json.dumps({"phase_s": phases}))
     log(card)

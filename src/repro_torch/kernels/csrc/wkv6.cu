@@ -45,10 +45,9 @@
 // one bf16 step from the step-by-step function). All math is f32 on
 // the CUDA cores, as the plain version: tensor-core TF32 or bf16 would
 // break the state's tolerance. Any T works: a ragged last chunk is
-// padded with k = v = r = 0 and w = 0. T <= L, one chunk or less (a
+// padded with k = v = r = 0 and w = 0. T < L, less than one chunk (a
 // decode step among them), takes the step-by-step kernel below
-// (namespace step): it is faster for T < L, and at T = L it keeps a
-// forward over one chunk bit-identical to decoding it token by token.
+// (namespace step).
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -516,14 +515,12 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_chunk_kernel(Args a) {
   }
 }
 
-// The step-by-step kernel, for T <= kL: below kL (a decode step among
-// them) it is faster than the chunked kernel, whose fixed per-chunk
-// phases do not pay off on so few rows; at kL it keeps a forward over one
-// chunk bit-identical to decoding it token by token. One CTA of 256
-// threads per (b, h): four threads own the rows of each state column
-// S[:, j] in registers and add their parts of o_t[j] with two shuffles;
-// the CTA walks T staging chunks of r, k, exp(w) and v in shared memory,
-// loading the next chunk into registers while it runs the current one.
+// The step-by-step kernel, for T < kL (a decode step among them). One
+// CTA of 256 threads per (b, h): four threads own the rows of each state
+// column S[:, j] in registers and add their parts of o_t[j] with two
+// shuffles; the CTA walks T staging chunks of r, k, exp(w) and v in
+// shared memory, loading the next chunk into registers while it runs
+// the current one.
 namespace step {
 
 constexpr int kQ = 4;                         // threads per state column
@@ -648,8 +645,8 @@ __global__ void __launch_bounds__(kThreads) wkv6_step_kernel(Args a) {
 // Plain C entry point, loaded with ctypes. Launches on `stream` and
 // returns a CUDA error code (0 = launched). B*H and T must be positive,
 // K and V in [1, 64]. Each *_bf16 flag selects __nv_bfloat16 for that
-// input (else float); o takes r's type. For T > 64, `scratch` holds
-// B*H*ceil(T/64)*wkv6_scratch_floats() floats; it may be null for T <= 64.
+// input (else float); o takes r's type. For T >= 64, `scratch` holds
+// B*H*ceil(T/64)*wkv6_scratch_floats() floats; it may be null for T < 64.
 extern "C" long long wkv6_scratch_floats() { return kScr; }
 
 extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
@@ -667,7 +664,7 @@ extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
          {swb, swh, swt}, r_bf16, k_bf16, v_bf16, w_bf16, scratch,
          n_chunks};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (T <= kL) {
+  if (T < kL) {
     step::wkv6_step_kernel<<<B * H, kThreads, 0, s>>>(a);
     return static_cast<int>(cudaGetLastError());
   }

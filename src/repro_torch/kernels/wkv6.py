@@ -20,12 +20,10 @@ states at the chunk boundaries, the only sequential walk, 64 steps at
 T=4096 (pass 2), and each chunk's outputs from its state, an
 intra-chunk matrix whose exponents are masked before ``exp`` so that
 each is <= 0, and the bonus term (pass 3, a chunk's rows split over four
-CTAs). A launch here is one call: the three kernels of T > 64, or, for
-T <= 64 (a decode step among them), the step-by-step kernel: it is
-faster below 64, and at 64 it keeps a forward over one chunk
-bit-identical to decoding it token by token. All math stays f32 on the
-CUDA cores. The result does not depend on ``chunk``, kept for signature
-parity.
+CTAs). A launch here is one call: the three kernels of T >= 64, or, for
+T < 64 (a decode step among them), the step-by-step kernel. All math
+stays f32 on the CUDA cores. The result does not depend on ``chunk``,
+kept for signature parity.
 
 :func:`wkv6_plain` is the plain PyTorch version (a port of
 ``repro/kernels/ref.py::wkv6_ref``, a loop over T). The wrapper takes it
@@ -97,7 +95,7 @@ def _check(r, k, v, w, u, s0):
                              f"shape {shape} on r's device")
 
 
-#: the chunk length of the chunked kernel; T <= CHUNK take the step kernel
+#: the chunk length of the chunked kernel; T < CHUNK take the step kernel
 CHUNK = 64
 
 
@@ -144,7 +142,7 @@ def wkv6(r, k, v, w, u, initial_state=None, *, chunk: int = 64):
     bf16 = [int(x.dtype == torch.bfloat16) for x in (r, k, v, w)]
     # per chunk: its addition to the state, the state at its start, its
     # decay (the chunked kernel's passes hand them on)
-    scratch = (None if T <= CHUNK else torch.empty(
+    scratch = (None if T < CHUNK else torch.empty(
         B * H * -(-T // CHUNK) * _scratch_floats(), dtype=torch.float32,
         device=dev))
     with torch.cuda.device(dev):

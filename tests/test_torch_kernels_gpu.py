@@ -308,7 +308,7 @@ def test_flash_attention_library_has_tensor_core_and_tma_code(cuda_device):
 @pytest.mark.parametrize("B,H,T,K,V,init", [
     (1, 40, 1, 64, 64, True),        # a decode step: the step kernel
     (1, 8, 63, 64, 64, True),
-    (1, 8, 64, 64, 64, False),       # one chunk: still the step kernel
+    (1, 8, 64, 64, 64, False),       # one chunk: the chunked kernel
     (2, 3, 65, 64, 64, True),        # a ragged tail of one row
     (1, 40, 4096, 64, 64, False),    # rwkv6-3b prefill
     (2, 3, 300, 32, 64, True),       # K != V
