@@ -17,7 +17,8 @@ script then exits non-zero with no result line):
    path's shapes and harder ones, plus its timings: the two probes bit
    for bit; ``flash_attention`` and ``wkv6`` within a tolerance stated per
    dtype (the LM prefill and decode shapes, a window, odd T, f32,
-   ``kv_len=0`` rows, K != V, chained halves, w=-20), beside
+   ``kv_len=0`` rows, K != V, chained halves, w=-20; ``wkv6``'s 64
+   chained one-step calls equal to one call bit for bit), beside
    ``scaled_dot_product_attention``'s time, the f32 attention kernel's
    time and ``wkv6``'s time at T=1 (a decode step);
 3. the 8 pre-refactor goldens (cfd/HS3D x 4 paper architectures,
@@ -1051,9 +1052,25 @@ def phase_wkv6(device) -> dict:
     check("decode_T1", wmod.wkv6(*x1, s0), wmod.wkv6_plain(*x1, s0))
     x2 = wkv6_inputs(2, 4, 300, 32, 64, device, 2)
     check("K32_V64", wmod.wkv6(*x2), wmod.wkv6_plain(*x2))
-    # one chunk, the length of the LM decode check's forward
+    # the length of the LM decode check's forward, in one call and as
+    # one-step calls chained through the state (what decode_step
+    # launches): the two must be equal bit for bit
     x4 = wkv6_inputs(1, H, DECODE_TOKENS, K, K, device, 4)
-    check("one_chunk_T64", wmod.wkv6(*x4, s0), wmod.wkv6_plain(*x4, s0))
+    one = wmod.wkv6(*x4, s0)
+    check("one_chunk_T64", one, wmod.wkv6_plain(*x4, s0))
+    s, outs = s0, []
+    for i in range(DECODE_TOKENS):
+        o, s = wmod.wkv6(*(y[:, :, i:i + 1] for y in x4[:4]), x4[4], s)
+        outs.append(o)
+    chain = torch.cat(outs, 2)
+    differ = {"o": int((chain != one[0]).sum()), "state": int(
+        (s != one[1]).sum())}
+    cases["decode_chain_T64"] = {"elements_unequal_to_one_call": differ}
+    log(f"wkv6 {DECODE_TOKENS} chained T=1 calls against one call: "
+        f"elements that differ {differ}")
+    if any(differ.values()):
+        raise AssertionError(f"wkv6: chained T=1 calls differ from one "
+                             f"T={DECODE_TOKENS} call in {differ}")
     # two halves chained through the state equal the whole
     r, k, v, w, u = x
     h = LM_SEQ // 2
@@ -1079,22 +1096,18 @@ def phase_wkv6(device) -> dict:
     bound_ms, bound_by = bound(nbytes, ops, FP32_OPS_PER_S)
     t = {"plain_ms_runs": [time_ms(plain, n=1, warm=0)],
          "call_ms": time_ms(kernel, n=20, warm=2),
-         # the chunked kernel's three passes
-         "device_ms": kernel_device_ms(kernel, "wkv6_", n=10)}
-    t["passes_ms"] = {name: kernel_device_ms(kernel, name, n=10) for name in
-                      ("wkv6_chunk_state_kernel", "wkv6_state_scan_kernel",
-                       "wkv6_chunk_kernel")}
+         "device_ms": kernel_device_ms(kernel, "wkv6_scan_kernel", n=10)}
     t["plain_ms_runs"].append(time_ms(plain, n=1, warm=0))
     t.update(plain_ms=sum(t["plain_ms_runs"]) / 2, bound_ms=bound_ms,
              bound_by=bound_by, bytes=nbytes, ops=ops)
     # T=1 from an initial state, 40 heads: the decode step ModelServer
-    # launches, on the step-by-step kernel; its bound counts bytes, each
+    # launches; its bound counts bytes, each
     # input read once (s0 f32 included) and each output written once
     step = lambda: wmod.wkv6(*x1, s0)  # noqa: E731
     t1_bytes = (H * (2 * K + 2 * K + 2 * K + 4 * K) + H * K * 4
                 + 2 * H * K * K * 4 + H * K * 2)
     t1_ops = H * (5 * K * K + 3 * K + 2 * K)
-    t["t1"] = {"device_ms": kernel_device_ms(step, "wkv6_step_kernel",
+    t["t1"] = {"device_ms": kernel_device_ms(step, "wkv6_scan_kernel",
                                              n=50),
                "call_ms": time_ms(step, n=50, warm=5), "bytes": t1_bytes,
                "ops": t1_ops}
@@ -1105,7 +1118,7 @@ def phase_wkv6(device) -> dict:
         f"{t['t1']['bound_ms']:.6f} ms ({t['t1']['bound_by']}: {t1_bytes} B)")
     log(f"wkv6 rwkv6 prefill shape: kernel {t['device_ms']} ms on the "
         f"device, {t['call_ms']:.4f} ms per call; plain {t['plain_ms_runs']}"
-        f" ms (passes: {t['passes_ms']}); bound {bound_ms:.5f} ms "
+        f" ms; bound {bound_ms:.5f} ms "
         f"({bound_by}: {nbytes} B, {ops} f32 flops)")
     return {"max_abs_err": worst, "cases": cases, "timing": t}
 

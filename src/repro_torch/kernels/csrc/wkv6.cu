@@ -12,72 +12,52 @@
 // (bf16) once, 126 MB, and the recurrence does 5 f32 flops per (t, i, j),
 // 3.4 GFLOP on the CUDA cores.
 //
-// Design: the TPU kernel's chunked form, over chunks of L = 64 steps.
-// With c = cumsum(w) inside the chunk (inclusive) and c_prev[t] =
-// c[t-1] (c_prev[0] = 0), the state S at the chunk's start and, for
-// s <= t,
+// Design: a scan over T whose every step rounds the same way wherever a
+// call starts or ends, so that one call over T steps returns, bit for
+// bit, what T chained one-step calls (a decode) return. A model in bf16
+// turns one output rounded the other way into several percent of its
+// logits, so a forward and the decode of the same tokens agree only if
+// their WKV6 does. The output is computed as
 //
-//   A[t][s] = sum_i r[t][i] k[s][i] exp(c_prev[t][i] - c[s][i])  (s < t)
-//   A[t][t] = sum_i r[t][i] u[i] k[t][i]                         (bonus)
-//   o[t]    = (r[t] * exp(c_prev[t])) S + sum_{s<=t} A[t][s] v[s]
-//   S'      = exp(c[L-1]) * S + (k * exp(c[L-1] - c))^T v
+//   o_t[j] = sum_i r_t[i] S[i][j] + v_t[j] beta_t,
+//   beta_t = sum_i r_t[i] u[i] k_t[i],
 //
-// every exponent is <= 0 (masked before exp: only s < t is formed), so
-// the form is stable for any decay. Only the state S depends on earlier
-// chunks, and S' needs nothing of the chunk but its decay and its
-// addition U = (k * exp(c[L-1] - c))^T v. So one call runs three passes:
-// 1. every chunk at once: U and the decay (wkv6_chunk_state_kernel);
-// 2. the only sequential walk, S_{n+1} = d_n S_n + U_n over T/L chunk
-//    boundaries, 64 steps at T=4096 (wkv6_state_scan_kernel), storing
-//    each S_n;
-// 3. every chunk at once: its outputs from S_n (wkv6_chunk_kernel). The
-//    L x L x K exponentials of A cost the most, so a chunk's rows are
-//    split over G = 4 CTAs (CTA g takes the rows t = g mod 4, balancing
-//    A's triangle): 10,240 CTAs at the rwkv6-3b prefill shape. Each
-//    lane holds k[s] and c[s] for a quarter of the contraction in
-//    registers; the exponent is taken per term where s and t lie in the
-//    same half of the chunk and factored through row 31, both factors
-//    <= 1, where they do not; then o = [r 2^{c_prev} | A] [S_n; v] as
-//    one register-tiled product.
-// Passes 1 and 3 each load their chunk and take its cumsum of w (scaled
-// to base 2), carried as two floats so that c[t] - c[s] is exact to f32
-// however large |c| grows (one f32 cumsum put a few outputs more than
-// one bf16 step from the step-by-step function). All math is f32 on
-// the CUDA cores, as the plain version: tensor-core TF32 or bf16 would
-// break the state's tolerance. Any T works: a ragged last chunk is
-// padded with k = v = r = 0 and w = 0. T < L, less than one chunk (a
-// decode step among them), takes the step-by-step kernel below
-// (namespace step).
+// with S the state before step t. Column j of the state depends on
+// v[:, j] alone, so a CTA takes kVs = 32 columns of one head: B*H x V/32
+// CTAs, 80 at the rwkv6-3b prefill shape. In a CTA of 512 threads,
+// thread (q, j) holds rows 4q..4q+3 of column j in registers. Per step it
+// adds its rows' share of r_t S into a partial sum and updates
+// S = exp(w_t) S + k_t v_t: the only dependence from one step to the next
+// is one FMA per state element, and no thread waits for another within a
+// chunk of kL = 32 steps. A chunk runs in three phases between barriers:
+//   1. its inputs, copied to shared memory during the previous chunk, are
+//      converted to f32 (w to exp(w)), and beta_t is summed;
+//   2. the next chunk's inputs are put in flight (cp.async, 16 bytes a
+//      copy, where the layout allows it) and the 32 steps run;
+//   3. the 16 row groups' partial sums of each step are added in a fixed
+//      order, with the bonus term, and o is written.
+// Every product and sum is an explicit round-to-nearest intrinsic, so the
+// compiler cannot contract or reorder one differently in another copy of
+// the loop. All math is f32 on the CUDA cores, as the plain version:
+// tensor-core TF32 or bf16 would break the state's tolerance.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math_constants.h>
 
 namespace {
 
-constexpr int kMax = 64;                // K, V <= 64
-constexpr int kL = 64;                  // chunk length
-constexpr int kG = 4;                   // CTAs per head: row groups of A
-constexpr int kR = kL / kG;             // rows of a chunk per CTA
-constexpr int kThreads = 256;
-constexpr float kLog2e = 1.4426950408889634f;  // w is scaled to base 2
-constexpr int kWt = 20;                 // padded row of the o product's
-                                        // left side: float4 stores of a
-                                        // warp's lanes hit distinct banks
-
-// An input element's raw bits (a bf16 zero-extended, or an f32), and
-// their value. Loads return bits so that no conversion waits on a load
-// before the next one is issued.
-__device__ __forceinline__ uint32_t load_raw(const void* p, long long i,
-                                             int bf16) {
-  return bf16 ? static_cast<uint32_t>(
-                    __ldg(static_cast<const unsigned short*>(p) + i))
-              : __ldg(static_cast<const unsigned int*>(p) + i);
-}
-__device__ __forceinline__ float from_raw(uint32_t x, int bf16) {
-  return __uint_as_float(bf16 ? x << 16 : x);
-}
+constexpr int kMax = 64;              // K, V <= 64
+constexpr int kVs = 32;               // state columns per CTA
+constexpr int kQ = 16;                // row groups: threads per column
+constexpr int kR = kMax / kQ;         // state rows per thread
+constexpr int kL = 32;                // steps per chunk
+constexpr int kThreads = kVs * kQ;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPitch = kMax * 4;      // bytes of a copied input row
+static_assert(kR == 4 && kL % kWarps == 0 && (kL * kVs) % kThreads == 0 &&
+                  kMax == 64,
+              "tile shape");
 
 struct Args {
   const void* r;
@@ -91,593 +71,256 @@ struct Args {
   int H, T, K, V;
   long long sr[3], sk[3], sv[3], sw[3];  // strides of (b, h, t); unit last
   int r_bf16, k_bf16, v_bf16, w_bf16;
-  float* scratch;  // (B*H, n_chunks, kScr) f32, for T > kL
-  int n_chunks;
+  int r_vec, k_vec, v_vec, w_vec;  // rows 16-byte aligned: cp.async copies
 };
 
 struct Smem {
-  float k[kL][kMax];    // k, then k * 2^(c[L-1] - c) for the state update
-  float c[kL][kMax];    // w log2(e), then its inclusive cumsum c + cl,
-  float cl[kL][kMax];   // as the sum of two floats (see two_sum)
-  float s[kMax][kMax];  // the state at the chunk's start; with v below it,
-  float v[kL][kMax];    // the right side of the o product
-  float r[kR][kMax];    // this CTA's rows of r
-  float wt[2 * kMax][kWt];  // the o product's left side, transposed
-  float part[4][kR][kMax];  // partial sums (scan totals, A, o)
-  float rf[kR / 2][kMax];   // r * 2^(c[t-1] - c[31]), rows t >= 32
-  float u[kMax];
+  uint8_t raw_r[kL][kPitch];   // the next chunk's inputs as stored
+  uint8_t raw_k[kL][kPitch];
+  uint8_t raw_w[kL][kPitch];
+  uint8_t raw_v[kL][kVs * 4];  // this CTA's columns
+  // the chunk in f32; rows i >= K and steps past T are r = k = v = 0 and
+  // exp(w) = 1
+  float r[kL][kMax];
+  float k[kL][kMax];
+  float d[kL][kMax];           // exp(w)
+  float v[kL][kVs];
+  float part[kL][kVs][kQ + 1]; // per step: each row group's share of r S
+                               // (padded: a warp's reads in phase 3
+                               // fall on distinct banks)
+  float beta[kL];              // per step: r . u . k
 };
-
-// a + b as hi + lo exactly (Knuth's two-sum)
-__device__ __forceinline__ void two_sum(float a, float b, float& hi,
-                                        float& lo) {
-  hi = a + b;
-  const float bp = hi - a;
-  lo = (a - (hi - bp)) + (b - bp);
-}
-
-// 2^x on the special-function unit; 2^-inf = 0
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// Scratch per (b, h, chunk) in f32, written and read by the kernels
-// below: U = kd^T v (the chunk's addition to the state), S_n (the state
-// at the chunk's start) and d = 2^c[L-1] (its decay).
-constexpr long long kScrU = 0, kScrS = kMax * kMax, kScrD = 2 * kMax * kMax;
-constexpr long long kScr = 2 * kMax * kMax + kMax;
-
-__device__ __forceinline__ float* scratch(const Args& a, int bh, int chunk) {
-  return a.scratch + (static_cast<long long>(bh) * a.n_chunks + chunk) * kScr;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
 }
 
-// Load chunk rows t0.. (n of them; rows past n as k = v = w = r = 0):
-// k, w log2(e) and v, and r for the rows t = g + 4tr if with_r. All loads
-// go to registers first, then all stores, so that every load is in
-// flight at once (a generic load may not pass a shared store).
-__device__ __forceinline__ void load_chunk(Smem& sm, const Args& a, int b,
-                                           int h, int t0, int n, int g,
-                                           bool with_r) {
-  const int jc = threadIdx.x % kMax, qr = threadIdx.x / kMax;
-  const long long rb = b * a.sr[0] + h * a.sr[1];
-  const long long kb = b * a.sk[0] + h * a.sk[1];
-  const long long vb = b * a.sv[0] + h * a.sv[1];
-  const long long wb = b * a.sw[0] + h * a.sw[1];
-  uint32_t lk[kL / 4], lw[kL / 4], lv[kL / 4], lr[kR / 4];
-#pragma unroll
-  for (int m = 0; m < kL / 4; ++m) {
-    const int t = qr + 4 * m, i = jc;
-    const long long gt = t0 + t;
-    const bool in_t = t < n;
-    const bool in_k = in_t && i < a.K;
-    lk[m] = in_k ? load_raw(a.k, kb + gt * a.sk[2] + i, a.k_bf16) : 0u;
-    lw[m] = in_k ? load_raw(a.w, wb + gt * a.sw[2] + i, a.w_bf16) : 0u;
-    lv[m] = (in_t && i < a.V) ? load_raw(a.v, vb + gt * a.sv[2] + i, a.v_bf16)
-                              : 0u;
-  }
-#pragma unroll
-  for (int m = 0; m < kR / 4; ++m) {
-    const int t = g + kG * (qr + 4 * m), i = jc;
-    lr[m] = (with_r && t < n && i < a.K)
-                ? load_raw(a.r, rb + (t0 + t) * a.sr[2] + i, a.r_bf16)
-                : 0u;
-  }
-#pragma unroll
-  for (int m = 0; m < kL / 4; ++m) {
-    sm.k[qr + 4 * m][jc] = from_raw(lk[m], a.k_bf16);
-    sm.c[qr + 4 * m][jc] = from_raw(lw[m], a.w_bf16) * kLog2e;
-    sm.v[qr + 4 * m][jc] = from_raw(lv[m], a.v_bf16);
-  }
-#pragma unroll
-  for (int m = 0; m < kR / 4; ++m)
-    sm.r[qr + 4 * m][jc] = from_raw(lr[m], a.r_bf16);
-}
-
-// c = cumsum(w) over the chunk's rows, column jc, carried as two floats
-// (hi in c, lo in cl) so that a difference c[t] - c[s] keeps its own
-// relative accuracy however large |c| grows: thread qr scans rows
-// 16qr..16qr+15, then adds the totals of the row blocks before it.
-// Called by every thread after the chunk is loaded; ends synchronised.
-__device__ __forceinline__ void chunk_cumsum(Smem& sm) {
-  const int jc = threadIdx.x % kMax, qr = threadIdx.x / kMax;
-  float* tot = &sm.part[0][0][0];  // [2][4][kMax]
-  {
-    float hi = 0.f, lo = 0.f;
-#pragma unroll
-    for (int m = 0; m < 16; ++m) {
-      float e;
-      two_sum(hi, sm.c[16 * qr + m][jc], hi, e);
-      lo += e;
-      sm.c[16 * qr + m][jc] = hi;
-      sm.cl[16 * qr + m][jc] = lo;
+// Rows t0..t0+n-1, columns c0..c0+cols-1 of one input (es bytes an
+// element, row stride st elements, from element `base`) to rows of
+// `pitch` bytes at dst: 16-byte asynchronous copies where `vec`, else
+// element by element.
+__device__ __forceinline__ void copy_rows(uint8_t* dst, int pitch,
+                                          const void* src, long long base,
+                                          long long st, int es, int t0,
+                                          int n, int c0, int cols, int vec) {
+  const char* s = static_cast<const char*>(src);
+  if (vec) {
+    const int segs = cols * es / 16;
+    for (int x = threadIdx.x; x < n * segs; x += kThreads) {
+      const int t = x / segs, g = x - t * segs;
+      cp_async16(dst + t * pitch + g * 16,
+                 s + (base + (t0 + t) * st + c0) * es + g * 16);
     }
-    tot[qr * kMax + jc] = hi;
-    tot[(4 + qr) * kMax + jc] = lo;
-  }
-  __syncthreads();
-  if (qr > 0) {
-    float hi = 0.f, lo = 0.f;
-    for (int p = 0; p < qr; ++p) {
-      float e;
-      two_sum(hi, tot[p * kMax + jc], hi, e);
-      lo += e + tot[(4 + p) * kMax + jc];
-    }
-#pragma unroll
-    for (int m = 0; m < 16; ++m) {
-      float h2, e;
-      two_sum(sm.c[16 * qr + m][jc], hi, h2, e);
-      sm.c[16 * qr + m][jc] = h2;
-      sm.cl[16 * qr + m][jc] += lo + e;
-    }
-  }
-  __syncthreads();
-}
-
-// Pass 1, grid (chunks, B*H): each chunk's addition to the state,
-// U = (k 2^(c[L-1] - c))^T v, and its decay d = 2^c[L-1]. Every chunk
-// at once: none depends on another.
-__global__ void __launch_bounds__(kThreads, 2)
-    wkv6_chunk_state_kernel(Args a) {
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int chunk = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / a.H, h = bh - b * a.H;
-  const int t0 = chunk * kL, n = min(kL, a.T - t0);
-  const int tid = threadIdx.x;
-  const int jc = tid % kMax, qr = tid / kMax;
-  const int ti = tid / 16, tj = tid % 16;
-  float* scr = scratch(a, bh, chunk);
-
-  load_chunk(sm, a, b, h, t0, n, 0, false);
-  __syncthreads();
-  chunk_cumsum(sm);
-  {
-    const float ch = sm.c[kL - 1][jc], cl = sm.cl[kL - 1][jc];
-#pragma unroll
-    for (int m = 0; m < 16; ++m) {
-      const int t = 16 * qr + m;
-      if (t < n) sm.k[t][jc] *= ex2((ch - sm.c[t][jc]) + (cl - sm.cl[t][jc]));
-    }
-    if (qr == 0) scr[kScrD + jc] = ex2(ch + cl);
-  }
-  __syncthreads();
-  float U[4][4] = {};
-#pragma unroll 8
-  for (int s = 0; s < n; ++s) {
-    const float4 d4 = ld4(&sm.k[s][4 * ti]);
-    const float4 v4 = ld4(&sm.v[s][4 * tj]);
-    const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
-    const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-    for (int x = 0; x < 4; ++x)
-#pragma unroll
-      for (int y = 0; y < 4; ++y) U[x][y] = fmaf(dv[x], vv[y], U[x][y]);
-  }
-#pragma unroll
-  for (int x = 0; x < 4; ++x)
-    *reinterpret_cast<float4*>(scr + kScrU + (4 * ti + x) * kMax + 4 * tj) =
-        make_float4(U[x][0], U[x][1], U[x][2], U[x][3]);
-}
-
-// Pass 2, grid (B*H): the only sequential part, S_{n+1} = d_n S_n + U_n
-// over the chunks, each thread a 4 x 4 tile of the state; S_n is stored
-// for pass 3 and the last state is the output sf.
-__global__ void __launch_bounds__(kThreads) wkv6_state_scan_kernel(Args a) {
-  const int bh = blockIdx.x;
-  const int ti = threadIdx.x / 16, tj = threadIdx.x % 16;
-  const long long state = static_cast<long long>(bh) * a.K * a.V;
-  float S[4][4];
-#pragma unroll
-  for (int x = 0; x < 4; ++x)
-#pragma unroll
-    for (int y = 0; y < 4; ++y) {
-      const int i = 4 * ti + x, j = 4 * tj + y;
-      S[x][y] = (a.s0 != nullptr && i < a.K && j < a.V)
-                    ? a.s0[state + static_cast<long long>(i) * a.V + j]
-                    : 0.f;
-    }
-  // chunk n's U and d are loaded during step n - 1
-  float4 u4[4], d4;
-  auto fetch = [&](int chunk) {
-    const float* scr = scratch(a, bh, chunk);
-#pragma unroll
-    for (int x = 0; x < 4; ++x)
-      u4[x] = ld4(scr + kScrU + (4 * ti + x) * kMax + 4 * tj);
-    d4 = ld4(scr + kScrD + 4 * ti);
-  };
-  fetch(0);
-  for (int chunk = 0; chunk < a.n_chunks; ++chunk) {
-    float uu[4][4];
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      uu[x][0] = u4[x].x; uu[x][1] = u4[x].y;
-      uu[x][2] = u4[x].z; uu[x][3] = u4[x].w;
-    }
-    const float d[4] = {d4.x, d4.y, d4.z, d4.w};
-    if (chunk + 1 < a.n_chunks) fetch(chunk + 1);
-    float* scr = scratch(a, bh, chunk);
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      *reinterpret_cast<float4*>(scr + kScrS + (4 * ti + x) * kMax + 4 * tj) =
-          make_float4(S[x][0], S[x][1], S[x][2], S[x][3]);
-#pragma unroll
-      for (int y = 0; y < 4; ++y) S[x][y] = fmaf(d[x], S[x][y], uu[x][y]);
-    }
-  }
-#pragma unroll
-  for (int x = 0; x < 4; ++x)
-#pragma unroll
-    for (int y = 0; y < 4; ++y) {
-      const int i = 4 * ti + x, j = 4 * tj + y;
-      if (i < a.K && j < a.V)
-        a.sf[state + static_cast<long long>(i) * a.V + j] = S[x][y];
-    }
-}
-
-// Pass 3, grid (kG, chunks, B*H): the outputs of this CTA's rows of one
-// chunk, o = [r 2^c_prev | A] [S_n; v], every chunk at once.
-__global__ void __launch_bounds__(kThreads, 2) wkv6_chunk_kernel(Args a) {
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int g = blockIdx.x, chunk = blockIdx.y, bh = blockIdx.z;
-  const int b = bh / a.H, h = bh - b * a.H;
-  const int t0 = chunk * kL, n = min(kL, a.T - t0);
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int jc = tid % kMax, qr = tid / kMax;  // column, row quarter
-  const int tj = tid % 16;
-  const float* scr = scratch(a, bh, chunk);
-
-  for (int e = tid; e < kMax * kMax / 4; e += kThreads)
-    reinterpret_cast<float4*>(&sm.s[0][0])[e] =
-        ld4(scr + kScrS + 4 * e);
-  if (tid < kMax) sm.u[tid] = tid < a.K ? a.u[h * a.K + tid] : 0.f;
-  load_chunk(sm, a, b, h, t0, n, g, true);
-  __syncthreads();
-  chunk_cumsum(sm);
-
-  // A[t][s] for this CTA's rows t = g + 4tr: lane s = 32 sh + lane
-  // holds k[s], c[s] over its quarter i0.. of the contraction in
-  // registers; the quarters are summed below. s < t: the masked-
-  // before-exp term; s == t: the bonus r u k; s > t: 0. Where s and t
-  // lie in the same half of the chunk the exponent is taken per term;
-  // where s < 32 <= t it factors through the pivot row 31, both
-  // factors <= 1: 2^(c[t-1] - c[s]) = 2^(c[t-1] - c[31]) 2^(c[31] -
-  // c[s]), so that quarter of A is a plain product. Rows go in pairs
-  // with two accumulators each, for instruction-level parallelism.
-  {
-    const int iq = warp % 4, sh = warp / 4;
-    const int s = 32 * sh + lane, i0 = 16 * iq;
-    constexpr int kPiv = kL / 2 - 1;
-    // rf = r * 2^(c[t-1] - c[31]) for the rows t >= 32 (tr >= kR / 2)
-    for (int e = tid; e < kR / 2 * kMax; e += kThreads) {
-      const int tr = kR / 2 + e / kMax, i = e % kMax;
-      const int t = g + kG * tr;
-      sm.rf[tr - kR / 2][i] =
-          sm.r[tr][i] * ex2((sm.c[t - 1][i] - sm.c[kPiv][i]) +
-                              (sm.cl[t - 1][i] - sm.cl[kPiv][i]));
-    }
-    float kq[16], hq[16], lq[16];
-#pragma unroll
-    for (int x = 0; x < 16; x += 4) {
-      const float4 k4 = ld4(&sm.k[s][i0 + x]);
-      const float4 h4 = ld4(&sm.c[s][i0 + x]);
-      const float4 l4 = ld4(&sm.cl[s][i0 + x]);
-      kq[x] = k4.x; kq[x + 1] = k4.y; kq[x + 2] = k4.z; kq[x + 3] = k4.w;
-      hq[x] = h4.x; hq[x + 1] = h4.y; hq[x + 2] = h4.z; hq[x + 3] = h4.w;
-      lq[x] = l4.x; lq[x + 1] = l4.y; lq[x + 2] = l4.z; lq[x + 3] = l4.w;
-    }
-    __syncthreads();  // rf is ready
-    // rows of this warp's half, exponent per term
-#pragma unroll 1
-    for (int tr = kR / 2 * sh; tr < kR / 2 * (sh + 1); tr += 2) {
-      const int ta = g + kG * tr;
-      float acc[2][2] = {}, bonus[2] = {};
-      if (ta < n) {  // uniform
-        const int t2[2] = {ta, ta + kG};
-        bool before[2];
-        int tp[2];
-#pragma unroll
-        for (int z = 0; z < 2; ++z) {
-          before[z] = s < t2[z] && t2[z] < n;
-          tp[z] = t2[z] > 0 ? t2[z] - 1 : 0;
-        }
-#pragma unroll
-        for (int x = 0; x < 16; x += 4) {
-          const float4 u4 = ld4(&sm.u[i0 + x]);
-          const float uu[4] = {u4.x, u4.y, u4.z, u4.w};
-#pragma unroll
-          for (int z = 0; z < 2; ++z) {
-            const float4 r4 = ld4(&sm.r[tr + z][i0 + x]);
-            const float4 p4 = ld4(&sm.c[tp[z]][i0 + x]);
-            const float4 q4 = ld4(&sm.cl[tp[z]][i0 + x]);
-            const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
-            const float ph[4] = {p4.x, p4.y, p4.z, p4.w};
-            const float pl[4] = {q4.x, q4.y, q4.z, q4.w};
-#pragma unroll
-            for (int y = 0; y < 4; ++y) {
-              const float e = before[z]
-                                  ? (ph[y] - hq[x + y]) + (pl[y] - lq[x + y])
-                                  : -CUDART_INF_F;
-              acc[z][y & 1] =
-                  fmaf(rr[y] * kq[x + y], ex2(e), acc[z][y & 1]);
-              bonus[z] = fmaf(rr[y] * uu[y], kq[x + y], bonus[z]);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int z = 0; z < 2; ++z)
-        sm.part[iq][tr + z][s] =
-            s == ta + kG * z ? bonus[z] : acc[z][0] + acc[z][1];
-    }
-    // the other half's rows: s < 32 <= t factors through the pivot;
-    // s >= 32 > t is 0
-    if (sh == 0) {
-      float kf[16];
-#pragma unroll
-      for (int x = 0; x < 16; x += 4) {
-        const float4 p4 = ld4(&sm.c[kPiv][i0 + x]);
-        const float4 q4 = ld4(&sm.cl[kPiv][i0 + x]);
-        const float ph[4] = {p4.x, p4.y, p4.z, p4.w};
-        const float pl[4] = {q4.x, q4.y, q4.z, q4.w};
-#pragma unroll
-        for (int y = 0; y < 4; ++y)
-          kf[x + y] = kq[x + y] * ex2((ph[y] - hq[x + y]) +
-                                        (pl[y] - lq[x + y]));
-      }
-#pragma unroll 2
-      for (int tr = kR / 2; tr < kR; ++tr) {
-        float acc[2] = {};
-#pragma unroll
-        for (int x = 0; x < 16; x += 4) {
-          const float4 f4 = ld4(&sm.rf[tr - kR / 2][i0 + x]);
-          acc[0] = fmaf(f4.x, kf[x], acc[0]);
-          acc[1] = fmaf(f4.y, kf[x + 1], acc[1]);
-          acc[0] = fmaf(f4.z, kf[x + 2], acc[0]);
-          acc[1] = fmaf(f4.w, kf[x + 3], acc[1]);
-        }
-        sm.part[iq][tr][s] = acc[0] + acc[1];
-      }
-    } else {
-      for (int tr = 0; tr < kR / 2; ++tr) sm.part[iq][tr][s] = 0.f;
-    }
-  }
-  // rd = r * 2^c_prev into wt[i][tr], c_prev[t] = c[t-1]
-#pragma unroll
-  for (int m = 0; m < kR / 4; ++m) {
-    const int tr = qr + 4 * m, i = jc;
-    const int t = g + kG * tr;
-    const float cp = t > 0 ? sm.c[t - 1][i] + sm.cl[t - 1][i] : 0.f;
-    sm.wt[i][tr] = sm.r[tr][i] * ex2(cp);
-  }
-  __syncthreads();
-
-
-  // wt[64 + s][tr] = A[t][s], the quarters summed in a fixed order
-  {
-    const int s = jc, tr0 = 4 * qr;
-    float x[4];
-#pragma unroll
-    for (int y = 0; y < 4; ++y)
-      x[y] = ((sm.part[0][tr0 + y][s] + sm.part[1][tr0 + y][s]) +
-              sm.part[2][tr0 + y][s]) + sm.part[3][tr0 + y][s];
-    *reinterpret_cast<float4*>(&sm.wt[kMax + s][tr0]) =
-        make_float4(x[0], x[1], x[2], x[3]);
-  }
-  __syncthreads();
-
-  // o = wt^T [S_n; v]: a (kR x 128) by (128 x 64) product, the 128
-  // split over 4 thread groups, each thread a 4 x 4 tile
-  {
-    const int ks = tid / 64, tt = (tid % 64) / 16;
-    const float* rhs = &sm.s[0][0];  // rows 0..63 the state, 64.. v
-    float o[4][4] = {};
-#pragma unroll 8
-    for (int kk = 32 * ks; kk < 32 * ks + 32; ++kk) {
-      const float4 l4 = ld4(&sm.wt[kk][4 * tt]);
-      const float4 r4 = ld4(rhs + kk * kMax + 4 * tj);
-      const float lv[4] = {l4.x, l4.y, l4.z, l4.w};
-      const float rv[4] = {r4.x, r4.y, r4.z, r4.w};
-#pragma unroll
-      for (int x = 0; x < 4; ++x)
-#pragma unroll
-        for (int y = 0; y < 4; ++y) o[x][y] = fmaf(lv[x], rv[y], o[x][y]);
-    }
-#pragma unroll
-    for (int x = 0; x < 4; ++x)  // A's partials are consumed already
-      *reinterpret_cast<float4*>(&sm.part[ks][4 * tt + x][4 * tj]) =
-          make_float4(o[x][0], o[x][1], o[x][2], o[x][3]);
-  }
-  __syncthreads();
-
-  // o rows out, the k-split summed in a fixed order
-  const long long ob = static_cast<long long>(bh) * a.T * a.V;
-#pragma unroll
-  for (int m = 0; m < kR / 4; ++m) {
-    const int tr = qr + 4 * m, j = jc;
-    const int t = g + kG * tr;
-    if (t < n && j < a.V) {
-      const float o = ((sm.part[0][tr][j] + sm.part[1][tr][j]) +
-                       sm.part[2][tr][j]) + sm.part[3][tr][j];
-      const long long oi = ob + static_cast<long long>(t0 + t) * a.V + j;
-      if (a.r_bf16)
-        static_cast<__nv_bfloat16*>(a.o)[oi] = __float2bfloat16(o);
+  } else {
+    for (int x = threadIdx.x; x < n * cols; x += kThreads) {
+      const int t = x / cols, c = x - t * cols;
+      const long long e = base + (t0 + t) * st + c0 + c;
+      if (es == 2)
+        reinterpret_cast<uint16_t*>(dst + t * pitch)[c] =
+            __ldg(reinterpret_cast<const uint16_t*>(s) + e);
       else
-        static_cast<float*>(a.o)[oi] = o;
+        reinterpret_cast<uint32_t*>(dst + t * pitch)[c] =
+            __ldg(reinterpret_cast<const uint32_t*>(s) + e);
     }
   }
 }
 
-// The step-by-step kernel, for T < kL (a decode step among them). One
-// CTA of 256 threads per (b, h): four threads own the rows of each state
-// column S[:, j] in registers and add their parts of o_t[j] with two
-// shuffles; the CTA walks T staging chunks of r, k, exp(w) and v in
-// shared memory, loading the next chunk into registers while it runs
-// the current one.
-namespace step {
-
-constexpr int kQ = 4;                         // threads per state column
-constexpr int kR = kMax / kQ;                 // rows per thread
-constexpr int kPad = kR + 4;                  // padded row group
-constexpr int kL = 32;                        // time steps staged per chunk
-constexpr int kStage = kL * kMax / kThreads;  // (t, i) staged per thread
-
-__device__ __forceinline__ float load_f(const void* p, long long i,
-                                        int bf16) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-              : static_cast<const float*>(p)[i];
+// element i of a copied row, as f32
+__device__ __forceinline__ float raw_at(const uint8_t* row, int i, int bf16) {
+  return bf16 ? __uint_as_float(static_cast<uint32_t>(
+                    reinterpret_cast<const uint16_t*>(row)[i]) << 16)
+              : reinterpret_cast<const float*>(row)[i];
 }
 
-__global__ void __launch_bounds__(kThreads) wkv6_step_kernel(Args a) {
-  __shared__ __align__(16) float rs[kL][kQ][kPad];
-  __shared__ __align__(16) float ks[kL][kQ][kPad];
-  __shared__ __align__(16) float ds[kL][kQ][kPad];  // exp(w)
-  __shared__ float vs[kL][kMax];
-  __shared__ __align__(16) float us[kQ][kPad];
-
+// Grid (B*H, ceil(V / kVs)), kThreads threads, sizeof(Smem) bytes.
+__global__ void __launch_bounds__(kThreads) wkv6_scan_kernel(Args a) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int bh = blockIdx.x;
   const int b = bh / a.H, h = bh - b * a.H;
-  const int tid = threadIdx.x;
-  const int j = tid / kQ, q = tid % kQ;  // column, row group
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int j = tid % kVs, q = tid / kVs;  // column in the slice, row group
+  const int c0 = blockIdx.y * kVs;         // the slice's first column
+  const int cols = min(kVs, a.V - c0);
   const int i0 = q * kR;
   const long long state = static_cast<long long>(bh) * a.K * a.V;
 
   float S[kR];
 #pragma unroll
   for (int m = 0; m < kR; ++m)
-    S[m] = (a.s0 != nullptr && i0 + m < a.K && j < a.V)
-               ? a.s0[state + static_cast<long long>(i0 + m) * a.V + j]
+    S[m] = (a.s0 != nullptr && i0 + m < a.K && j < cols)
+               ? a.s0[state + static_cast<long long>(i0 + m) * a.V + c0 + j]
                : 0.f;
-  if (tid < kMax) us[tid / kR][tid % kR] = tid < a.K ? a.u[h * a.K + tid] : 0.f;
+  // u of the rows lane and lane + 32, which this lane sums in beta
+  const float u0 = lane < a.K ? a.u[h * a.K + lane] : 0.f;
+  const float u1 = lane + 32 < a.K ? a.u[h * a.K + lane + 32] : 0.f;
 
   const long long rb = b * a.sr[0] + h * a.sr[1];
   const long long kb = b * a.sk[0] + h * a.sk[1];
   const long long vb = b * a.sv[0] + h * a.sv[1];
   const long long wb = b * a.sw[0] + h * a.sw[1];
-  const bool o_bf16 = a.r_bf16 != 0;
   const long long ob = static_cast<long long>(bh) * a.T * a.V;
 
-  // entry m of this thread's share of a chunk: step idx / kMax, row or
-  // column idx % kMax, idx = tid + m * kThreads
-  float pr[kStage], pk[kStage], pw[kStage], pv[kStage];
-  auto load = [&](int t0) {
-#pragma unroll
-    for (int m = 0; m < kStage; ++m) {
-      const int idx = tid + m * kThreads;
-      const int i = idx % kMax;
-      const long long t = t0 + idx / kMax;
-      const bool in_t = t < a.T;
-      const bool in_k = in_t && i < a.K;
-      pr[m] = in_k ? load_f(a.r, rb + t * a.sr[2] + i, a.r_bf16) : 0.f;
-      pk[m] = in_k ? load_f(a.k, kb + t * a.sk[2] + i, a.k_bf16) : 0.f;
-      pw[m] = in_k ? load_f(a.w, wb + t * a.sw[2] + i, a.w_bf16) : 0.f;
-      pv[m] = (in_t && i < a.V) ? load_f(a.v, vb + t * a.sv[2] + i, a.v_bf16)
-                                : 0.f;
-    }
+  auto copy_chunk = [&](int t0) {
+    const int n = min(kL, a.T - t0);
+    copy_rows(&sm.raw_r[0][0], kPitch, a.r, rb, a.sr[2], a.r_bf16 ? 2 : 4,
+              t0, n, 0, a.K, a.r_vec);
+    copy_rows(&sm.raw_k[0][0], kPitch, a.k, kb, a.sk[2], a.k_bf16 ? 2 : 4,
+              t0, n, 0, a.K, a.k_vec);
+    copy_rows(&sm.raw_w[0][0], kPitch, a.w, wb, a.sw[2], a.w_bf16 ? 2 : 4,
+              t0, n, 0, a.K, a.w_vec);
+    copy_rows(&sm.raw_v[0][0], kVs * 4, a.v, vb, a.sv[2], a.v_bf16 ? 2 : 4,
+              t0, n, c0, cols, a.v_vec);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
 
-  load(0);
+  copy_chunk(0);
   for (int t0 = 0; t0 < a.T; t0 += kL) {
     const int n = min(kL, a.T - t0);
-    __syncthreads();  // the previous chunk is consumed (and us is set)
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // the chunk is copied; the previous one's o written
+
+    // 1. to f32: warp w takes steps w, w + kWarps, ...; lane l rows l and
+    // l + 32, whose r u k it sums into beta by a butterfly over the lanes
+    // (every lane ends with the same sum: each addition is commutative)
 #pragma unroll
-    for (int m = 0; m < kStage; ++m) {
+    for (int x = 0; x < kL / kWarps; ++x) {
+      const int tt = warp + x * kWarps;
+      float rr[2], kk[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = lane + 32 * e;
+        const bool in = tt < n && i < a.K;
+        rr[e] = in ? raw_at(sm.raw_r[tt], i, a.r_bf16) : 0.f;
+        kk[e] = in ? raw_at(sm.raw_k[tt], i, a.k_bf16) : 0.f;
+        sm.r[tt][i] = rr[e];
+        sm.k[tt][i] = kk[e];
+        sm.d[tt][i] = in ? expf(raw_at(sm.raw_w[tt], i, a.w_bf16)) : 1.f;
+      }
+      float s = __fmul_rn(__fmul_rn(rr[0], u0), kk[0]);
+      s = __fmaf_rn(__fmul_rn(rr[1], u1), kk[1], s);
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1)
+        s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, m));
+      if (lane == 0) sm.beta[tt] = s;
+    }
+#pragma unroll
+    for (int m = 0; m < kL * kVs / kThreads; ++m) {
       const int idx = tid + m * kThreads;
-      const int tt = idx / kMax, i = idx % kMax;
-      rs[tt][i / kR][i % kR] = pr[m];
-      ks[tt][i / kR][i % kR] = pk[m];
-      ds[tt][i / kR][i % kR] = expf(pw[m]);  // padded rows: exp(0) = 1
-      vs[tt][i] = pv[m];
+      const int tt = idx / kVs, c = idx % kVs;
+      sm.v[tt][c] = (tt < n && c < cols) ? raw_at(sm.raw_v[tt], c, a.v_bf16)
+                                         : 0.f;
     }
     __syncthreads();
-    if (t0 + kL < a.T) load(t0 + kL);  // in flight during the steps below
+
+    // 2. the next chunk in flight; the steps: this thread's rows of r S
+    // (before the step), then S
+    if (t0 + kL < a.T) copy_chunk(t0 + kL);
+#pragma unroll 8
     for (int tt = 0; tt < n; ++tt) {
-      const float vj = vs[tt][j];
-      float o = 0.f;
+      const float vj = sm.v[tt][j];
+      const float4 r4 = ld4(&sm.r[tt][i0]);
+      const float4 k4 = ld4(&sm.k[tt][i0]);
+      const float4 d4 = ld4(&sm.d[tt][i0]);
+      const float rr[kR] = {r4.x, r4.y, r4.z, r4.w};
+      const float kk[kR] = {k4.x, k4.y, k4.z, k4.w};
+      const float dd[kR] = {d4.x, d4.y, d4.z, d4.w};
+      float p = __fmul_rn(rr[0], S[0]);
 #pragma unroll
-      for (int m4 = 0; m4 < kR; m4 += 4) {
-        const float4 r4 = *reinterpret_cast<const float4*>(&rs[tt][q][m4]);
-        const float4 k4 = *reinterpret_cast<const float4*>(&ks[tt][q][m4]);
-        const float4 d4 = *reinterpret_cast<const float4*>(&ds[tt][q][m4]);
-        const float4 u4 = *reinterpret_cast<const float4*>(&us[q][m4]);
-        const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
-        const float kk[4] = {k4.x, k4.y, k4.z, k4.w};
-        const float dd[4] = {d4.x, d4.y, d4.z, d4.w};
-        const float uu[4] = {u4.x, u4.y, u4.z, u4.w};
+      for (int m = 1; m < kR; ++m) p = __fmaf_rn(rr[m], S[m], p);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float kv = kk[c] * vj;
-          o = fmaf(rr[c], fmaf(uu[c], kv, S[m4 + c]), o);
-          S[m4 + c] = fmaf(dd[c], S[m4 + c], kv);
-        }
-      }
-      // the kQ threads of a column are lanes differing in their low bits
-      o += __shfl_xor_sync(0xffffffffu, o, 1);
-      o += __shfl_xor_sync(0xffffffffu, o, 2);
-      if (q == 0 && j < a.V) {
-        const long long oi = ob + static_cast<long long>(t0 + tt) * a.V + j;
-        if (o_bf16)
-          static_cast<__nv_bfloat16*>(a.o)[oi] = __float2bfloat16(o);
+      for (int m = 0; m < kR; ++m)
+        S[m] = __fmaf_rn(dd[m], S[m], __fmul_rn(kk[m], vj));
+      sm.part[tt][j][q] = p;
+    }
+    __syncthreads();
+
+    // 3. the chunk's outputs, each step's row groups added in order
+#pragma unroll
+    for (int m = 0; m < kL * kVs / kThreads; ++m) {
+      const int idx = tid + m * kThreads;
+      const int tt = idx / kVs, c = idx % kVs;
+      if (tt < n && c < cols) {
+        float acc = sm.part[tt][c][0];
+#pragma unroll
+        for (int g = 1; g < kQ; ++g) acc = __fadd_rn(acc, sm.part[tt][c][g]);
+        const float o = __fmaf_rn(sm.v[tt][c], sm.beta[tt], acc);
+        const long long oi =
+            ob + static_cast<long long>(t0 + tt) * a.V + c0 + c;
+        if (a.r_bf16)
+          static_cast<__nv_bfloat16*>(a.o)[oi] = __float2bfloat16_rn(o);
         else
           static_cast<float*>(a.o)[oi] = o;
       }
     }
   }
-  if (j < a.V) {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  if (j < cols) {
 #pragma unroll
     for (int m = 0; m < kR; ++m)
       if (i0 + m < a.K)
-        a.sf[state + static_cast<long long>(i0 + m) * a.V + j] = S[m];
+        a.sf[state + static_cast<long long>(i0 + m) * a.V + c0 + j] = S[m];
   }
 }
 
-}  // namespace step
+// Whether every row of an input (n0 x n1 x n2 rows of `cols` elements of
+// es bytes, strides s0, s1, s2) starts 16-byte aligned and spans whole
+// 16-byte segments; a dimension of size 1 takes no stride.
+int rows_aligned(const void* p, int n0, int n1, int n2, long long s0,
+                 long long s1, long long s2, int cols, int es) {
+  auto ok = [](int n, long long s, int es) {
+    return n == 1 || (s * es) % 16 == 0;
+  };
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ok(n0, s0, es) &&
+         ok(n1, s1, es) && ok(n2, s2, es) && (cols * es) % 16 == 0;
+}
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Launches on `stream` and
-// returns a CUDA error code (0 = launched). B*H and T must be positive,
+// returns a CUDA error code (0 = launched). B*H must be positive, T >= 0,
 // K and V in [1, 64]. Each *_bf16 flag selects __nv_bfloat16 for that
-// input (else float); o takes r's type. For T >= 64, `scratch` holds
-// B*H*ceil(T/64)*wkv6_scratch_floats() floats; it may be null for T < 64.
-extern "C" long long wkv6_scratch_floats() { return kScr; }
-
+// input (else float); o takes r's type.
 extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
                            const void* w, const float* u, const float* s0,
-                           void* o, float* sf, float* scratch, int B, int H,
-                           int T, int K, int V, long long srb, long long srh,
+                           void* o, float* sf, int B, int H, int T, int K,
+                           int V, long long srb, long long srh,
                            long long srt, long long skb, long long skh,
                            long long skt, long long svb, long long svh,
                            long long svt, long long swb, long long swh,
                            long long swt, int r_bf16, int k_bf16,
                            int v_bf16, int w_bf16, void* stream) {
-  const int n_chunks = (T + kL - 1) / kL;
+  const auto es = [](int bf16) { return bf16 ? 2 : 4; };
   Args a{r, k, v, w, u, s0, o, sf, H, T, K, V,
          {srb, srh, srt}, {skb, skh, skt}, {svb, svh, svt},
-         {swb, swh, swt}, r_bf16, k_bf16, v_bf16, w_bf16, scratch,
-         n_chunks};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (T < kL) {
-    step::wkv6_step_kernel<<<B * H, kThreads, 0, s>>>(a);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+         {swb, swh, swt}, r_bf16, k_bf16, v_bf16, w_bf16,
+         rows_aligned(r, B, H, T, srb, srh, srt, K, es(r_bf16)),
+         rows_aligned(k, B, H, T, skb, skh, skt, K, es(k_bf16)),
+         rows_aligned(v, B, H, T, svb, svh, svt, V, es(v_bf16)),
+         rows_aligned(w, B, H, T, swb, swh, swt, K, es(w_bf16))};
   const int bytes = sizeof(Smem);
-  for (const void* f : {reinterpret_cast<const void*>(wkv6_chunk_state_kernel),
-                        reinterpret_cast<const void*>(wkv6_chunk_kernel)}) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        f, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  // the shared-memory limit is raised once per device (a decode step
+  // launches this kernel per layer and token)
+  static bool raised[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64 || !raised[dev]) {
+    err = cudaFuncSetAttribute(wkv6_scan_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev >= 0 && dev < 64) raised[dev] = true;
   }
-  wkv6_chunk_state_kernel<<<dim3(n_chunks, B * H), kThreads, bytes, s>>>(a);
-  wkv6_state_scan_kernel<<<B * H, kThreads, 0, s>>>(a);
-  wkv6_chunk_kernel<<<dim3(kG, n_chunks, B * H), kThreads, bytes, s>>>(a);
+  const dim3 grid(B * H, (V + kVs - 1) / kVs);
+  wkv6_scan_kernel<<<grid, kThreads, bytes,
+                     static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,17 +13,15 @@ with r, k, w (B, H, T, K), v (B, H, T, V), u (H, K) and the state
 What bounds it on an H100: f32 operations in principle (at the rwkv6-3b
 prefill shape, B=1, H=40, T=4096, K=V=64, one launch moves 126 MB and
 does 3.4 GFLOP), the sequential dependence over T in practice. The
-design (``csrc/wkv6.cu``) is the TPU kernel's chunked form over chunks
-of 64 steps, in three passes that each run every chunk at once but the
-second: each chunk's addition to the state and its decay (pass 1), the
-states at the chunk boundaries, the only sequential walk, 64 steps at
-T=4096 (pass 2), and each chunk's outputs from its state, an
-intra-chunk matrix whose exponents are masked before ``exp`` so that
-each is <= 0, and the bonus term (pass 3, a chunk's rows split over four
-CTAs). A launch here is one call: the three kernels of T >= 64, or, for
-T < 64 (a decode step among them), the step-by-step kernel. All math
-stays f32 on the CUDA cores. The result does not depend on ``chunk``,
-kept for signature parity.
+design (``csrc/wkv6.cu``) is a scan whose every step rounds the same way
+wherever a call starts or ends: one call over T steps returns, bit for
+bit, what T chained one-step calls return, so a bf16 model's forward and
+its decode of the same tokens agree. Each CTA takes 32 state columns of
+one head (80 CTAs at the rwkv6-3b prefill shape); per step a thread
+updates its four state elements, one FMA deep, and adds its share of
+``r S``; the shares are added, with the bonus term, a chunk of 32 steps
+at a time, while the next chunk's inputs are copied in. All math stays f32 on the CUDA cores. The result does not
+depend on ``chunk``, kept for signature parity.
 
 :func:`wkv6_plain` is the plain PyTorch version (a port of
 ``repro/kernels/ref.py::wkv6_ref``, a loop over T). The wrapper takes it
@@ -95,25 +93,14 @@ def _check(r, k, v, w, u, s0):
                              f"shape {shape} on r's device")
 
 
-#: the chunk length of the chunked kernel; T < CHUNK take the step kernel
-CHUNK = 64
-
-
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = build.load("wkv6").wkv6_launch
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _scratch_floats() -> int:
-    fn = build.load("wkv6").wkv6_scratch_floats
-    fn.restype = ctypes.c_longlong
-    return fn()
 
 
 def wkv6(r, k, v, w, u, initial_state=None, *, chunk: int = 64):
@@ -140,18 +127,12 @@ def wkv6(r, k, v, w, u, initial_state=None, *, chunk: int = 64):
         return o, sf
     launch = _launcher()
     bf16 = [int(x.dtype == torch.bfloat16) for x in (r, k, v, w)]
-    # per chunk: its addition to the state, the state at its start, its
-    # decay (the chunked kernel's passes hand them on)
-    scratch = (None if T < CHUNK else torch.empty(
-        B * H * -(-T // CHUNK) * _scratch_floats(), dtype=torch.float32,
-        device=dev))
     with torch.cuda.device(dev):
         err = launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(),
             None if initial_state is None else initial_state.data_ptr(),
-            o.data_ptr(), sf.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), B, H, T, K, V,
+            o.data_ptr(), sf.data_ptr(), B, H, T, K, V,
             *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *w.stride()[:3], *bf16, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

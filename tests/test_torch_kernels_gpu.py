@@ -306,9 +306,9 @@ def test_flash_attention_library_has_tensor_core_and_tma_code(cuda_device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,H,T,K,V,init", [
-    (1, 40, 1, 64, 64, True),        # a decode step: the step kernel
+    (1, 40, 1, 64, 64, True),        # a decode step
     (1, 8, 63, 64, 64, True),
-    (1, 8, 64, 64, 64, False),       # one chunk: the chunked kernel
+    (1, 8, 64, 64, 64, False),       # the LM decode check's forward
     (2, 3, 65, 64, 64, True),        # a ragged tail of one row
     (1, 40, 4096, 64, 64, False),    # rwkv6-3b prefill
     (2, 3, 300, 32, 64, True),       # K != V
@@ -347,3 +347,29 @@ def test_wkv6_chained_halves_equal_whole(cuda_device):
     torch.cuda.synchronize()
     _assert_one_bf16_step(torch.cat([o1, o2], 2), o)
     torch.testing.assert_close(s2, s, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,split", [(64, 1), (200, 37)])
+def test_wkv6_chained_calls_bit_equal_one_call(cuda_device, T, split):
+    """Calls of ``split`` steps chained through the state return, bit for
+    bit, what one call over T steps returns (split 1: the decode steps
+    ``decode_step`` launches)."""
+    from repro_torch.kernels import wkv6 as wmod
+    g = torch.Generator(device="cpu").manual_seed(T)
+    B, H, K = 1, 40, 64
+    r, k, v = (torch.randn((B, H, T, K), generator=g).mul(0.5).to(
+        cuda_device, torch.bfloat16) for _ in range(3))
+    w = -torch.exp(torch.randn((B, H, T, K), generator=g)).to(cuda_device)
+    u = torch.randn((H, K), generator=g).to(cuda_device)
+    s0 = torch.randn((B, H, K, K), generator=g).to(cuda_device)
+    o, s = wmod.wkv6(r, k, v, w, u, s0)
+    state, outs = s0, []
+    for t0 in range(0, T, split):
+        sl = slice(t0, t0 + split)
+        ot, state = wmod.wkv6(r[:, :, sl], k[:, :, sl], v[:, :, sl],
+                              w[:, :, sl], u, state)
+        outs.append(ot)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(outs, 2), o)
+    assert torch.equal(state, s)

@@ -147,16 +147,16 @@ def test_routes():
 
 
 # ---------------------------------------------------------------------------
-# The chunked Hopper kernel's arithmetic, emulated on the CPU. The kernel
-# (csrc/wkv6.cu) runs the TPU kernel's chunked form over chunks of 64
-# steps with a ragged, zero-padded tail: w scaled to base 2 and its
+# The TPU kernel's chunked form, in f32, emulated on the CPU: chunks of
+# 64 steps with a ragged, zero-padded tail, w scaled to base 2 and its
 # cumsum carried as two floats (emulated here by an f64 cumsum split into
 # hi + lo), the intra-chunk matrix with every exponent masked before
 # exp2, factored through the pivot row 31 where s < 32 <= t, the bonus
 # on its diagonal, the inter-chunk product with the state and the state
-# update. The rows of a chunk are split over four CTAs (t mod 4); the
-# split does not change the arithmetic of a row, so the emulation runs
-# them together.
+# update. The Hopper kernel ran this form until it was found to round
+# unlike chained decode steps (see the scan kernel's tests below); these
+# tests hold the form itself against the plain version and the Pallas
+# kernel.
 # ---------------------------------------------------------------------------
 LOG2E = 1.4426950408889634
 
@@ -212,7 +212,7 @@ def emulate_chunked_kernel(r, k, v, w, u, s0=None, L=64, pivot=31):
 @pytest.mark.parametrize("T", [1, 64, 65, 128, 200])
 @pytest.mark.parametrize("decay", [None, -20.0])
 def test_chunked_kernel_arithmetic(T, decay):
-    """The chunked kernel's arithmetic against the plain version and,
+    """The chunked form's arithmetic against the plain version and,
     where T is a multiple of the chunk, the Pallas kernel."""
     B, H, K, V = 1, 2, 64, 64
     x = _inputs(T + (7 if decay else 0), B, H, T, K, V, decay=decay)
@@ -231,3 +231,113 @@ def test_chunked_kernel_arithmetic_k_not_v():
     x = _inputs(3, 2, 3, 130, 32, 64)
     _check(emulate_chunked_kernel(*_t(x)), kmod.wkv6_plain(*_t(x)),
            ref.wkv6_ref(*_j(x)))
+
+
+# ---------------------------------------------------------------------------
+# The Hopper scan kernel's arithmetic (csrc/wkv6.cu), emulated on the CPU.
+# Per step, with S the state before it: each group of four state rows
+# adds its share of r S in row order (a product, then FMAs); the 16
+# groups' shares are added in group order; the bonus v * beta is added
+# by an FMA, beta = sum_i r_i u_i k_i over two rows per lane of a warp
+# and a butterfly over the 32 lanes; then S = exp(w) S + k v, one FMA per
+# element. Rows past K are zero. An FMA is emulated in f64 and rounded
+# once to f32. Nothing depends on where a call starts or ends.
+# ---------------------------------------------------------------------------
+def _fma(a, b, c):
+    return (a.double() * b.double() + c.double()).float()
+
+
+def emulate_scan_kernel(r, k, v, w, u, s0=None):
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    pad = (0, 64 - K)
+    r, k, w = (torch.nn.functional.pad(x.float(), pad) for x in (r, k, w))
+    v = v.float()
+    u = torch.nn.functional.pad(u.float(), pad)
+    S = torch.zeros(B, H, 64, V)
+    if s0 is not None:
+        S[:, :, :K] = s0.float()
+    lanes = torch.arange(32)
+    outs = []
+    for t in range(T):
+        rt, kt, vt = r[:, :, t], k[:, :, t], v[:, :, t]
+        rg, sg = rt.view(B, H, 16, 4, 1), S.view(B, H, 16, 4, V)
+        p = rg[:, :, :, 0] * sg[:, :, :, 0]
+        for m in range(1, 4):
+            p = _fma(rg[:, :, :, m], sg[:, :, :, m], p)
+        acc = p[:, :, 0]
+        for g in range(1, 16):
+            acc = acc + p[:, :, g]
+        lane = (rt[..., :32] * u[:, :32]) * kt[..., :32]
+        lane = _fma(rt[..., 32:] * u[:, 32:], kt[..., 32:], lane)
+        for m in (16, 8, 4, 2, 1):
+            lane = lane + lane[..., lanes ^ m]
+        outs.append(_fma(vt, lane[..., :1], acc))
+        S = _fma(torch.exp(w[:, :, t])[..., None], S,
+                 kt[..., None] * vt[:, :, None])
+    o = torch.stack(outs, 2) if outs else torch.zeros(B, H, 0, V)
+    return o, S[:, :, :K]
+
+
+def _bf16_steps_apart(got, want, atol=1e-5):
+    """Elements of bf16 ``got`` and ``want`` more than one bf16 rounding
+    step of the larger magnitude (+ atol, f32 noise near 0) apart: the
+    criterion of chip_smoke.check_bf16_step."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs())
+    _, e = torch.frexp(mag)
+    step = torch.where(mag > 0, torch.ldexp(torch.ones_like(mag), e - 8),
+                       torch.zeros_like(mag))
+    return int(((g - w).abs() > step + atol).sum())
+
+
+@pytest.mark.parametrize("T", [1, 33, 64, 200])
+@pytest.mark.parametrize("decay", [None, -20.0])
+def test_scan_kernel_arithmetic(T, decay):
+    """The scan kernel's arithmetic against the plain version and, where
+    T is a multiple of 64, the Pallas kernel, in f32."""
+    B, H, K, V = 1, 2, 64, 64
+    x = _inputs(T + (5 if decay else 0), B, H, T, K, V, decay=decay)
+    s0 = np.random.default_rng(T + 1).standard_normal((B, H, K, V)).astype(
+        np.float32)
+    got = emulate_scan_kernel(*_t(x), torch.from_numpy(s0))
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    wants = [kmod.wkv6_plain(*_t(x), torch.from_numpy(s0))]
+    if T % 64 == 0:
+        wants.append(pallas_wkv6(*_j(x), jnp.asarray(s0), chunk=64))
+    _check(got, *wants)
+
+
+@pytest.mark.parametrize("K,V", [(64, 64), (32, 64), (64, 48)])
+def test_scan_kernel_bf16_within_one_step(K, V):
+    """bf16 r, k, v and f32 w as the model hands them over: o rounded
+    once to bf16 is within one bf16 step of the plain version's."""
+    x = _t(_inputs(K + V, 2, 3, 96, K, V))
+    for i in range(3):
+        x[i] = x[i].to(torch.bfloat16)
+    s0 = torch.from_numpy(np.random.default_rng(K).standard_normal(
+        (2, 3, K, V)).astype(np.float32))
+    o, s = emulate_scan_kernel(*x, s0)
+    wo, ws = kmod.wkv6_plain(*x, s0)
+    assert _bf16_steps_apart(o.to(torch.bfloat16), wo) == 0
+    np.testing.assert_allclose(s.numpy(), ws.numpy(), **TOL)
+
+
+def test_scan_kernel_chained_steps_equal_one_call():
+    """T one-step calls chained through the state return, bit for bit,
+    what one call over the T steps returns: the property that lets a
+    forward and a decode of the same tokens agree in bf16."""
+    x = _t(_inputs(8, 1, 2, 64, 64, 64))
+    for i in range(3):
+        x[i] = x[i].to(torch.bfloat16)
+    s0 = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (1, 2, 64, 64)).astype(np.float32))
+    o, s = emulate_scan_kernel(*x, s0)
+    state, outs = s0, []
+    for t in range(64):
+        ot, state = emulate_scan_kernel(*(y[:, :, t:t + 1] for y in x[:4]),
+                                        x[4], state)
+        outs.append(ot)
+    assert torch.equal(torch.cat(outs, 2).to(torch.bfloat16),
+                       o.to(torch.bfloat16))
+    assert torch.equal(state, s)
