@@ -15,7 +15,11 @@ script then exits non-zero with no result line):
    ``flash_attention`` library, where the toolkit has ``cuobjdump``;
 2. each kernel against its plain PyTorch version on the card, at its main
    path's shapes and harder ones, plus its timings: the two probes bit
-   for bit; ``flash_attention`` and ``wkv6`` within a tolerance stated per
+   for bit (``ata_probe_rank`` also at 200 points, R up to 4096, 8192
+   caches and all requests at one port; ``ata_tag_probe`` also on the
+   serving engine's strided directory lane, sets outside [0, S)
+   included), beside the launch floor (a one-element ``fill_``);
+   ``flash_attention`` and ``wkv6`` within a tolerance stated per
    dtype (the LM prefill and decode shapes, a window, odd T, f32,
    ``kv_len=0`` rows, K != V, chained halves, w=-20; ``wkv6``'s 64
    chained one-step calls equal to one call bit for bit), beside
@@ -229,9 +233,12 @@ def sass_counts(lib, opcodes) -> dict:
 # ---------------------------------------------------------------------------
 # phase 2: each kernel against its plain version on the card
 # ---------------------------------------------------------------------------
-def probe_rank_inputs(P, R, seed, device, C=30, S=8, W=64, G=10):
+def probe_rank_inputs(P, R, seed, device, C=30, S=8, W=64, G=10,
+                      one_port=False):
     """Paper-geometry inputs with planted same-set duplicates, dirty
-    sources and denied lanes."""
+    sources and denied lanes. With ``one_port`` every request misses its
+    own row and hits one clean copy in cache 2: all R of a point queue
+    at one port in arrival order."""
     import torch
     rng = np.random.default_rng(seed)
     tags = rng.integers(0, 96, (P, C, S, W)).astype(np.int32)
@@ -245,8 +252,17 @@ def probe_rank_inputs(P, R, seed, device, C=30, S=8, W=64, G=10):
     # (same-set duplicates from one or two cores)
     set_idx[:, 1::4] = set_idx[:, 0::4][:, :set_idx[:, 1::4].shape[1]]
     qtag[:, 1::4] = qtag[:, 0::4][:, :qtag[:, 1::4].shape[1]]
-    cbase = (core // G) * G
     deny = rng.random((P, R)) < 0.2
+    if one_port:
+        tags[:, :G] = 0
+        qtag[:] = 7
+        tags[:, 2, :, W - 3] = 7
+        valid[:, 2, :, W - 3] = True
+        dirty[:, 2] = False
+        core = rng.integers(0, G, (P, R)).astype(np.int32)
+        core[core == 2] = 3
+        deny[:] = False
+    cbase = (core // G) * G
     arrays = (set_idx, qtag, core, cbase.astype(np.int32), deny, tags,
               valid, dirty)
     return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -291,6 +307,14 @@ def kernel_device_ms(fn, name: str, n=100) -> float:
     return total / n / 1e3      # us -> ms
 
 
+def launch_floor_ms(device) -> float:
+    """Device time of a one-element ``torch.fill_``: what any launch
+    costs on the device, the floor under a launch-sized kernel."""
+    import torch
+    x = torch.zeros(1, dtype=torch.int32, device=device)
+    return kernel_device_ms(lambda: x.fill_(1), "FillFunctor")
+
+
 def device_kernels(prof) -> list:
     """(device us, launches, name) of every kernel a profile saw."""
     import torch
@@ -326,28 +350,48 @@ def probe_rank_bound(args, G=10):
 def phase_kernels(device) -> dict:
     import torch
     from repro_torch.kernels import ata_probe_rank as kmod
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     worst = 0
     cases = []
-    for P in (1, 53):
-        for R in (60, 120, 150, 1500):
-            args = probe_rank_inputs(P, R, seed=P * 10007 + R, device=device)
-            got = kmod.ata_probe_rank(*args, cluster_size=10)
-            want = kmod.ata_probe_rank_plain(*args, cluster_size=10)
-            torch.cuda.synchronize()
-            for name, g, w in zip(("local_hit", "hit_way", "remote_ok",
-                                   "src_cache", "prank", "psize"), got, want):
-                if g.dtype != w.dtype or not torch.equal(g, w):
-                    raise AssertionError(
-                        f"ata_probe_rank P={P} R={R}: {name} differs from "
-                        "the plain version")
-                worst = max(worst, int((g.long() - w.long()).abs().max()))
-            hits = int(want[0].sum()) + int(want[2].sum())
-            cases.append({"P": P, "R": R, "local_hits": int(want[0].sum()),
-                          "remote_ok": int(want[2].sum())})
-            if hits == 0:
-                raise AssertionError(f"P={P} R={R}: inputs exercise nothing")
+    # (P, R, C, S, W, one_port): the main path's points and batches, more
+    # points than SMs, R from 1 to 4096, 8192 caches (the limit), every
+    # request of a point at one port, and W = 63 (the kernel's path for W
+    # not a multiple of 8)
+    shapes = [(P, R, 30, 8, 64, False) for P in (1, 53)
+              for R in (60, 120, 150, 1500)]
+    shapes += [(200, R, 30, 8, 64, False) for R in (1, 33, 4096)]
+    shapes += [(200, 4096, 30, 8, 64, True), (2, 4096, 8192, 2, 8, False),
+               (3, 1500, 8192, 2, 8, True), (5, 77, 30, 8, 63, False)]
+    for P, R, C, S, W, one_port in shapes:
+        args = probe_rank_inputs(P, R, seed=P * 10007 + R, device=device,
+                                 C=C, S=S, W=W, one_port=one_port)
+        got = kmod.ata_probe_rank(*args, cluster_size=10)
+        want = kmod.ata_probe_rank_plain(*args, cluster_size=10)
+        torch.cuda.synchronize()
+        where = f"ata_probe_rank P={P} R={R} C={C} S={S} W={W}" + (
+            " one port" if one_port else "")
+        for name, g, w in zip(("local_hit", "hit_way", "remote_ok",
+                               "src_cache", "prank", "psize"), got, want):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"{where}: {name} differs from the "
+                                     "plain version")
+            worst = max(worst, int((g.long() - w.long()).abs().max()))
+        hits = int(want[0].sum()) + int(want[2].sum())
+        cases.append({"P": P, "R": R, "C": C, "S": S, "W": W,
+                      "one_port": one_port,
+                      "cluster_blocks": kmod.cluster_blocks(P, R, sms),
+                      "local_hits": int(want[0].sum()),
+                      "remote_ok": int(want[2].sum())})
+        if one_port and not (bool(want[2].all()) and torch.equal(
+                got[4][0], torch.arange(R, dtype=torch.int32,
+                                        device=device))):
+            raise AssertionError(f"{where}: not one queue 0 .. R - 1")
+        if hits == 0 and R > 1:
+            raise AssertionError(f"{where}: inputs exercise nothing")
     log(f"ata_probe_rank == plain on the card for {len(cases)} shapes "
         f"(max abs err {worst})")
+    floor = launch_floor_ms(device)
+    log(f"launch floor (one-element fill_): {floor} ms on the device")
 
     timings = {}
     for P, R in ((46, 120), (7, 60)):    # the main path's two batches
@@ -361,13 +405,17 @@ def phase_kernels(device) -> dict:
              "device_ms": kernel_device_ms(kernel, "ata_probe_rank_kernel")}
         plain_ms.append(time_ms(plain))
         t.update(plain_ms=sum(plain_ms) / 2, plain_ms_runs=plain_ms,
-                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops)
+                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops,
+                 launch_floor_ms=floor,
+                 cluster_blocks=kmod.cluster_blocks(P, R, sms))
         timings[f"P{P}_R{R}"] = t
-        log(f"ata_probe_rank P={P} R={R}: kernel {t['device_ms']} ms on the"
-            f" device, {t['call_ms']:.5f} ms per call; plain {plain_ms} ms;"
-            f" bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {ops} "
+        log(f"ata_probe_rank P={P} R={R} ({t['cluster_blocks']} CTAs per "
+            f"point): kernel {t['device_ms']} ms on the device (launch floor"
+            f" {floor} ms), {t['call_ms']:.5f} ms per call; plain {plain_ms}"
+            f" ms; bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {ops} "
             "compares)")
-    return {"max_abs_err": worst, "cases": cases, "timings": timings}
+    return {"max_abs_err": worst, "cases": cases, "timings": timings,
+            "launch_floor_ms": floor}
 
 
 def tag_probe_inputs(R, C, S, W, seed, device):
@@ -384,6 +432,28 @@ def tag_probe_inputs(R, C, S, W, seed, device):
     qtag[::5] = 0
     return [torch.from_numpy(a).to(device)
             for a in (set_idx, qtag, tags, valid)]
+
+
+def directory_lane(C, S, W, R, seed, device):
+    """The serving engine's packed directory (C * S + 1, W, 2) int32 of
+    [tag, LRU key] lanes (empty ways tag 0) and requests against it: its
+    tag lane ``dir[:C * S, :, 0]`` as a strided (C, S, W) view, sets
+    (two outside [0, S)), tags (most present somewhere, some not, some
+    0), and ``valid = lane != 0`` as the engine passes it."""
+    import torch
+    rng = np.random.default_rng(seed)
+    d = np.zeros((C * S + 1, W, 2), np.int32)
+    d[..., 0] = rng.integers(1, 3 * W + 2, (C * S + 1, W))
+    d[..., 0][rng.random((C * S + 1, W)) < 0.3] = 0
+    d[..., 1] = rng.integers(W, 50 * W, (C * S + 1, W))
+    set_idx = rng.integers(0, S, R).astype(np.int32)
+    qtag = d[rng.integers(0, C, R) * S + set_idx, rng.integers(0, W, R), 0]
+    qtag[::4] = rng.integers(0, 3 * W + 2, len(qtag[::4]))
+    qtag[::9] = 0
+    set_idx[[0, R // 2]] = (-1, S)
+    lane = torch.from_numpy(d).to(device)[:C * S, :, 0].view(C, S, W)
+    return [torch.from_numpy(set_idx).to(device),
+            torch.from_numpy(qtag).to(device), lane, lane != 0]
 
 
 def tag_probe_bound(args, hits, ways):
@@ -427,8 +497,37 @@ def phase_tag_probe(device) -> dict:
         if R >= 37 and not 0 < n_hits < R * C:
             raise AssertionError(f"R={R} C={C}: inputs exercise nothing")
         cases.append({"R": R, "C": C, "S": S, "W": W, "hits": n_hits})
-    log(f"ata_tag_probe == plain on the card for {len(cases)} shapes "
-        f"(max abs err {worst})")
+    # the engine's strided directory lane, read in place, against the
+    # plain version on its contiguous copy; sets outside [0, S) miss; W =
+    # 96 takes the kernel's path for W > 64
+    for W in (6, 8, 64, 96):
+        C, K, S = 16, 18, 64
+        set_idx, qtag, lane, valid = directory_lane(C, S, W, C * K, W,
+                                                    device)
+        got = tmod.ata_tag_probe(set_idx, qtag, lane, valid)
+        inr = (set_idx >= 0) & (set_idx < S)
+        want = tmod.ata_tag_probe_plain(set_idx[inr], qtag[inr],
+                                        lane.contiguous(), valid)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("hits", "ways"), got, want):
+            if g.dtype != w.dtype or not torch.equal(g[inr], w):
+                raise AssertionError(f"ata_tag_probe on the directory lane "
+                                     f"W={W}: {name} differs from plain")
+            if g[~inr].any():
+                raise AssertionError(f"ata_tag_probe W={W}: a set outside "
+                                     "[0, S) reported a hit or a way")
+        n_hits = int(want[0].sum())
+        if not 0 < n_hits < want[0].numel():
+            raise AssertionError(f"directory lane W={W}: inputs exercise "
+                                 "nothing")
+        cases.append({"R": C * K, "C": C, "S": S, "W": W, "hits": n_hits,
+                      "layout": "directory lane, stride "
+                                f"{tuple(lane.stride())}",
+                      "sets_outside": int((~inr).sum())})
+    log(f"ata_tag_probe == plain on the card for {len(cases)} shapes, the "
+        f"engine's strided directory lane at W in (6, 8, 64, 96) among them"
+        f" (max abs err {worst})")
+    floor = launch_floor_ms(device)
 
     C, K = 16, 18                      # the scale replay's shape
     args = tag_probe_inputs(C * K, C, 64, 8, seed=7, device=device)
@@ -440,13 +539,20 @@ def phase_tag_probe(device) -> dict:
          "device_ms": kernel_device_ms(kernel, "ata_tag_probe_kernel")}
     t["call_ms_2"] = time_ms(kernel)
     plain_ms.append(time_ms(plain))
+    # the same shape as the engine passes it: the strided directory lane
+    lane_args = directory_lane(C, 64, 8, C * K, 7, device)
+    t["lane_device_ms"] = kernel_device_ms(
+        lambda: tmod.ata_tag_probe(*lane_args), "ata_tag_probe_kernel")
     t.update(plain_ms=sum(plain_ms) / 2, plain_ms_runs=plain_ms,
-             bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops)
+             bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops,
+             launch_floor_ms=floor)
     log(f"ata_tag_probe C={C} K={K} (R={C * K}): kernel {t['device_ms']} ms"
-        f" on the device, {t['call_ms']:.5f} / {t['call_ms_2']:.5f} ms per "
-        f"call; plain {plain_ms} ms; bound {bound_ms:.7f} ms ({bound_by}: "
-        f"{nbytes} B, {ops} compares)")
-    return {"max_abs_err": worst, "cases": cases, "timing": t}
+        f" on the device ({t['lane_device_ms']} ms on the directory lane; "
+        f"launch floor {floor} ms), {t['call_ms']:.5f} / "
+        f"{t['call_ms_2']:.5f} ms per call; plain {plain_ms} ms; bound "
+        f"{bound_ms:.7f} ms ({bound_by}: {nbytes} B, {ops} compares)")
+    return {"max_abs_err": worst, "cases": cases, "timing": t,
+            "launch_floor_ms": floor}
 
 
 # ---------------------------------------------------------------------------
@@ -1565,6 +1671,7 @@ def main() -> int:
         "ms": t["device_ms"] if t["device_ms"] is not None else t["call_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
+        "launch_floor_ms": t["launch_floor_ms"],
     }]
     t = report["tag_probe"]["timing"]
     kernels.append({
@@ -1576,6 +1683,7 @@ def main() -> int:
         "ms": t["device_ms"] if t["device_ms"] is not None else t["call_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
+        "launch_floor_ms": t["launch_floor_ms"],
     })
     t = report["flash_attention"]["timing"]
     kernels.append({

@@ -18,17 +18,22 @@ tags plus the valid/dirty bytes, a few megabytes that sit in the 50 MB
 L2; so a launch is bound by launch latency and those bytes, not by
 arithmetic. The design follows from that (``csrc/ata_probe_rank.cu``):
 
-* one CTA per simulation point, so a whole round of the batched
-  simulator is one launch; the CTA walks its R requests in chunks of
-  its block, one request per thread;
-* a thread reads only its own set row in the G caches of its cluster,
-  never the whole (C, S, W) state the TPU kernel kept resident;
+* one thread-block cluster of :func:`cluster_blocks` CTAs per
+  simulation point, so a whole round of the batched simulator is one
+  launch that spreads over the card; CTA k of a cluster takes the k-th
+  contiguous chunk of the point's requests;
+* a warp probes one request at a time, its own row and then the
+  cluster peers in id order, issuing the loads of several rows before
+  any compare: lane l reads ways l, l + 32, ..., so a 64-way row is one
+  coalesced pass, and warp ballots give each row's hit, first way and
+  dirty bit; the lowest-id hitting peer is taken after every row is
+  probed;
 * the TPU kernel carried port counts from tile to tile of its
-  sequential grid; here the C per-port counters live in shared memory
-  and carry from chunk to chunk inside the CTA, and a request's rank is
-  the carried count plus the earlier lanes of its chunk with the same
-  port (a shared-memory scan);
-* ``psize`` is read from the final counters inside the kernel.
+  sequential grid; here one warp per CTA ranks its chunk 32 requests
+  at a time in arrival order (``__match_any_sync`` on the port plus
+  per-port counts carried in shared memory), and a request then adds
+  the counts of the cluster's earlier CTAs at its port, read through
+  distributed shared memory; ``psize`` sums all of them.
 
 :func:`ata_probe_rank_plain` is the plain PyTorch version (a port of
 ``repro/kernels/ref.py::ata_probe_rank_ref``). The wrapper takes it only
@@ -47,6 +52,20 @@ from repro_torch.kernels import build
 launches = 0
 
 _MAX_CACHES = 8192   # per-port counters must fit the CTA's shared memory
+_WARPS = 8           # warps per CTA (csrc/ata_probe_rank.cu kThreads / 32)
+_MAX_CLUSTER = 8     # the portable thread-block cluster size
+
+
+def cluster_blocks(P: int, R: int, sms: int = 132) -> int:
+    """CTAs per point (the cluster size K): as many as keep the P points
+    within two CTAs per SM, at most 8, and no more than one per
+    ``_WARPS`` requests of a point; at least 1."""
+    return max(1, min(_MAX_CLUSTER, 2 * sms // P, -(-R // _WARPS)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def ata_probe_rank_plain(set_idx, qtag, core, cluster_base, deny, tags,
@@ -132,7 +151,7 @@ def _check(set_idx, qtag, core, cluster_base, deny, tags, valid, dirty):
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = build.load("ata_probe_rank").ata_probe_rank_launch
-    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -170,7 +189,8 @@ def ata_probe_rank(set_idx, qtag, core, cluster_base, deny, tags, valid,
             valid.data_ptr(), dirty.data_ptr(), local_hit.data_ptr(),
             hit_way.data_ptr(), remote_ok.data_ptr(), src_cache.data_ptr(),
             prank.data_ptr(), psize.data_ptr(), P, R, C, S, W,
-            cluster_size, torch.cuda.current_stream(dev).cuda_stream)
+            cluster_size, cluster_blocks(P, R, _sm_count(dev.index)),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ata_probe_rank launch failed: CUDA error {err}")
     launches += 1

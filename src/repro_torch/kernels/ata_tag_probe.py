@@ -13,11 +13,15 @@ What bounds it on an H100: at the serving shapes (C in {8, 16} shards,
 R = C * K <= 288 block lanes, S = 64 sets of W = 8 ways: the whole
 directory is 32 KB of tags) a launch reads a few KB of set rows and
 does at most R * C * W = 36,864 compares, so it is bound by launch
-latency, not bytes or arithmetic. The design (``csrc/ata_tag_probe.cu``)
-is the simplest right one: one thread per (request, cache) pair reads
-its W ways directly and keeps the first match. The TPU kernel's
-masked-max one-hot gather over the set axis (an answer to Mosaic's
-gather limits) is not carried over.
+latency and its chain of dependent memory round trips, not bytes or
+arithmetic. The design (``csrc/ata_tag_probe.cu``) takes two round
+trips: a group of lanes per (request, cache) pair (one lane per way, a
+whole warp for W > 32) reads the request's set and tag, then issues
+every way load of the row before any compare, and a warp ballot with
+``__ffs`` picks the first matching way. ``tags`` is read through its
+strides, so the serving engine probes the tag lane of its packed
+directory in place. The TPU kernel's masked-max one-hot gather over the
+set axis (an answer to Mosaic's gather limits) is not carried over.
 
 :func:`ata_tag_probe_plain` is the plain PyTorch version (a port of
 ``repro/kernels/ref.py::ata_tag_probe_ref``). The wrapper takes it only
@@ -67,15 +71,17 @@ def _check(set_idx, qtag, tags, valid):
         if x.shape != shape:
             raise ValueError(f"{name} must have shape {tuple(shape)}, got "
                              f"{tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if name != "tags" and not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (only tags may be "
+                             "a strided view: the kernel reads it at any "
+                             "element strides)")
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = build.load("ata_tag_probe").ata_tag_probe_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -84,9 +90,11 @@ def ata_tag_probe(set_idx, qtag, tags, valid):
     """Probe R request tags against C tag arrays.
 
     Shapes and results as :func:`ata_tag_probe_plain`. CPU tensors take
-    the plain version; CUDA tensors launch the Hopper kernel (inputs must
-    be contiguous, of the stated dtypes, on one device; a set outside
-    [0, S) reports a miss there instead of reading outside the array).
+    the plain version; CUDA tensors launch the Hopper kernel (inputs of
+    the stated dtypes, on one device, contiguous but for ``tags``, which
+    may be any strided view such as the serving engine's directory lane;
+    a set outside [0, S) reports a miss there instead of reading outside
+    the array).
     """
     global launches
     if tags.device.type == "cpu":
@@ -106,7 +114,8 @@ def ata_tag_probe(set_idx, qtag, tags, valid):
     with torch.cuda.device(dev):
         err = launch(set_idx.data_ptr(), qtag.data_ptr(), tags.data_ptr(),
                      valid.data_ptr(), hits.data_ptr(), ways.data_ptr(),
-                     R, C, S, W, torch.cuda.current_stream(dev).cuda_stream)
+                     R, C, S, W, *tags.stride(),
+                     torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ata_tag_probe launch failed: CUDA error {err}")
     launches += 1

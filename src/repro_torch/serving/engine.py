@@ -197,7 +197,8 @@ class ServeResult(NamedTuple):
 def _probe_all(tags, h, set_idx, *, backend):
     """(C, K, C_dir) hits of every request block vs every directory.
 
-    ``tags`` is the (C_dir, S, W) tag lane of the directory. Validity is
+    ``tags`` is the (C_dir, S, W) tag lane of the directory, a strided
+    view of the packed ``dir`` (way stride 2). Validity is
     implied by the directory contract: sealed tags are >= 1 and empty
     ways are 0, while invalid block lanes carry hash 0 — so
     ``tag == hash != 0`` is the whole hit predicate.
@@ -208,7 +209,7 @@ def _probe_all(tags, h, set_idx, *, backend):
         hits = ((g_t == h[None, :, :, None]) & (g_t != 0)).any(dim=-1)
         return hits.permute(1, 2, 0)                # (C, K, C_dir)
     R = C * K
-    tags = tags.contiguous()
+    # the kernel reads the strided directory lane in place
     hits, _ = ata_tag_probe(set_idx.reshape(R), h.reshape(R), tags,
                             tags != 0)
     return hits.reshape(C, K, C)

@@ -25,7 +25,10 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(P, R, device, seed, C=30, S=8, W=64, G=10):
+def _inputs(P, R, device, seed, C=30, S=8, W=64, G=10, one_port=False):
+    """Random inputs; with ``one_port`` every request misses its own row
+    and hits one clean copy in cache 2, so all R of a point queue at one
+    port in arrival order."""
     rng = np.random.default_rng(seed)
     tags = rng.integers(0, 48, (P, C, S, W)).astype(np.int32)
     valid = rng.random((P, C, S, W)) < 0.7
@@ -33,8 +36,17 @@ def _inputs(P, R, device, seed, C=30, S=8, W=64, G=10):
     qtag = rng.integers(0, 48, (P, R)).astype(np.int32)
     set_idx = rng.integers(0, S, (P, R)).astype(np.int32)
     core = rng.integers(0, C, (P, R)).astype(np.int32)
-    cbase = ((core // G) * G).astype(np.int32)
     deny = rng.random((P, R)) < 0.2
+    if one_port:
+        tags[:, :G] = 0
+        qtag[:] = 7
+        tags[:, 2, :, W - 3] = 7
+        valid[:, 2, :, W - 3] = True
+        dirty[:, 2] = False
+        core = rng.integers(0, G, (P, R)).astype(np.int32)
+        core[core == 2] = 3
+        deny[:] = False
+    cbase = ((core // G) * G).astype(np.int32)
     return [torch.from_numpy(a).to(device)
             for a in (set_idx, qtag, core, cbase, deny, tags, valid, dirty)]
 
@@ -55,6 +67,36 @@ def test_cuda_kernel_matches_plain(cuda_device, P, R):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("P,R,C,S,W,one_port", [
+    (200, 1, 30, 8, 64, False), (200, 33, 30, 8, 64, False),
+    (200, 4096, 30, 8, 64, False), (200, 4096, 30, 8, 64, True),
+    (2, 4096, 8192, 2, 8, False), (3, 1500, 8192, 2, 8, True),
+    (5, 77, 30, 8, 63, False)])
+def test_cuda_kernel_matches_plain_at_scale(cuda_device, P, R, C, S, W,
+                                            one_port):
+    """More points than SMs, R = 1 to 4096, C up to the 8192-cache limit
+    (clusters clipped at the last cache), every request of a point at one
+    port (ranks 0 .. R - 1 across the cluster's CTAs), and W = 63 (the
+    kernel's path for W not a multiple of 8)."""
+    args = _inputs(P, R, cuda_device, seed=R + C, C=C, S=S, W=W,
+                   one_port=one_port)
+    before = kmod.launches
+    got = kmod.ata_probe_rank(*args, cluster_size=10)
+    torch.cuda.synchronize()
+    assert kmod.launches == before + 1
+    want = kmod.ata_probe_rank_plain(*args, cluster_size=10)
+    for name, g, w in zip(NAMES, got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    if one_port:
+        assert bool(want[2].all())
+        ranks = torch.arange(R, dtype=torch.int32, device=cuda_device)
+        assert torch.equal(got[4], ranks.expand(P, R))
+        assert bool((got[5] == R).all())
+    elif R > 1:
+        assert want[0].any() and want[2].any()
+
+
+@pytest.mark.gpu
 def test_cuda_wrapper_checks_inputs(cuda_device):
     args = _inputs(2, 60, cuda_device, seed=0)
     bad = list(args)
@@ -69,6 +111,16 @@ def test_cuda_wrapper_checks_inputs(cuda_device):
     bad[6] = args[6].cpu()
     with pytest.raises(ValueError, match="valid is on cpu"):
         kmod.ata_probe_rank(*bad, cluster_size=10)
+    # ata_tag_probe reads tags at any strides; the rest stay contiguous
+    t = _tag_inputs(37, 8, 64, 8, cuda_device, seed=0)
+    strided = torch.stack((t[2], t[2] + 1), dim=-1)[..., 0]
+    assert not strided.is_contiguous()
+    for g, w in zip(tmod.ata_tag_probe(t[0], t[1], strided, t[3]),
+                    tmod.ata_tag_probe(*t)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="only tags may be a strided view"):
+        tmod.ata_tag_probe(t[0], t[1], t[2],
+                           t[3].transpose(1, 2).contiguous().transpose(1, 2))
 
 
 def _tag_inputs(R, C, S, W, device, seed):
@@ -98,6 +150,46 @@ def test_tag_probe_kernel_matches_plain(cuda_device, R, C, S, W):
     want = tmod.ata_tag_probe_plain(*args)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [6, 8, 64, 96])
+def test_tag_probe_reads_the_engine_directory_lane(cuda_device, W):
+    """The serving engine's packed directory (C * S + 1, W, 2): the tag
+    lane dir[:C * S, :, 0] probed in place equals its contiguous copy
+    and the plain version; a set outside [0, S) misses everywhere. W =
+    96 takes the kernel's path for W > 64."""
+    C, S, K = 16, 64, 18
+    R = C * K
+    rng = np.random.default_rng(W)
+    d = np.zeros((C * S + 1, W, 2), np.int32)
+    d[..., 0] = rng.integers(1, 3 * W + 2, (C * S + 1, W))
+    d[..., 0][rng.random((C * S + 1, W)) < 0.3] = 0
+    d[..., 1] = rng.integers(W, 50 * W, (C * S + 1, W))
+    lane = torch.from_numpy(d).to(cuda_device)[:C * S, :, 0].view(C, S, W)
+    assert lane.stride() == (S * W * 2, W * 2, 2)
+    set_idx = rng.integers(0, S, R).astype(np.int32)
+    qtag = d[rng.integers(0, C, R) * S + set_idx, rng.integers(0, W, R), 0]
+    qtag[::4] = rng.integers(0, 3 * W + 2, len(qtag[::4]))
+    qtag[::9] = 0
+    set_idx[[3, 100]] = (-1, S)
+    set_idx, qtag = (torch.from_numpy(a).to(cuda_device)
+                     for a in (set_idx, qtag))
+    valid = lane != 0
+    before = tmod.launches
+    hits, ways = tmod.ata_tag_probe(set_idx, qtag, lane, valid)
+    torch.cuda.synchronize()
+    assert tmod.launches == before + 1
+    copy = lane.contiguous()
+    for g, w in zip((hits, ways), tmod.ata_tag_probe(set_idx, qtag, copy,
+                                                     valid)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    inr = (set_idx >= 0) & (set_idx < S)
+    want = tmod.ata_tag_probe_plain(set_idx[inr], qtag[inr], copy, valid)
+    assert torch.equal(hits[inr], want[0]) and torch.equal(ways[inr],
+                                                           want[1])
+    assert want[0].any() and not want[0].all()
+    assert not hits[~inr].any() and not ways[~inr].any()
 
 
 @pytest.mark.gpu
