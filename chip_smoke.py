@@ -30,32 +30,42 @@ script then exits non-zero with no result line):
 4. the simulator's main path: ``run_suite()`` over all 10 apps x 53
    kernels x 4 paper architectures at 1536 rounds on the paper geometry,
    with the launch counters zeroed just before and read just after;
-   Fig. 8 normalized IPC and geomean gains; ``ata`` again on the plain
-   ``torch`` probe backend, which must give bit-equal results; kernel 0
-   of every app against the stored reference results;
-5. serving exactness: the engine on the card against the port's numpy
+   Fig. 8 normalized IPC and geomean gains, and Fig. 9, Fig. 10 and
+   Table I from the same results; ``ata`` again on the plain ``torch``
+   probe backend, which must give bit-equal results; kernel 0 of every
+   app against the stored reference results;
+5. the contention-policy zoo: ``run_suite()`` over the same 53 kernels
+   under ``ata_bypass``, ``ata_fifo``, ``ciao`` and ``victim``, launch
+   counters zeroed just before and read just after; kernel 0 of every
+   app against the stored reference results of the zoo; the 18
+   ``ciao``/``victim`` cells of the committed sensitivity baseline
+   (``benchmarks/baselines/sensitivity_rounds96.json``); the ``cuda`` and
+   ``torch`` probe backends bit-equal for the three policies that reach
+   the probe kernel, at cut rounds; the zoo table; a profile of the
+   ``victim`` round loop;
+6. serving exactness: the engine on the card against the port's numpy
    oracle at the reference's test sizes (every policy x B, and the
    sequential stream), all 24 cells of the committed serving baseline
    (``benchmarks/baselines/serving_rounds512.json``), the ``cuda`` and
    ``torch`` probe backends bit-equal, NoC flit conservation;
-6. the serving main path at ``fig_serving_scale.py``'s shape cut to a
+7. the serving main path at ``fig_serving_scale.py``'s shape cut to a
    quarter of its depth: one 16-shard chat+rag stream of about 250,000
    requests replayed under ``ata`` at B=4, with the launch counters
    zeroed just before and read just after, and a profile of 64
    sub-rounds;
-7. the LM inference path at full width (qwen3-0.6b and rwkv6-3b, weights
+8. the LM inference path at full width (qwen3-0.6b and rwkv6-3b, weights
    made on the card from fixed seeds): prefill ``forward`` at B=1, T=4096
    on the "kernel" route, launch counters zeroed just before and read
    just after, held against the "ref" route;
-8. LM decode: 64 teacher-forced ``decode_step`` calls against
+9. LM decode: 64 teacher-forced ``decode_step`` calls against
    ``forward``, and a profiled decode step; for rwkv6 also against a
    forward whose WKV6 is exact (f64), with per-layer counts of the bf16
    WKV6 outputs that differ from the exact ones;
-9. ``ModelServer`` at the reference launcher's defaults (16 requests, 4
-   shards, block 16, 8 decode steps, ``ata``) for both models, launch
-   counters zeroed just before and read just after: the directory's
-   stats against ``run_workload``, and one request served cold and warm;
-10. the per-phase times, the card line again, a ``kernels`` JSON line,
+10. ``ModelServer`` at the reference launcher's defaults (16 requests, 4
+    shards, block 16, 8 decode steps, ``ata``) for both models, launch
+    counters zeroed just before and read just after: the directory's
+    stats against ``run_workload``, and one request served cold and warm;
+11. the per-phase times, the card line again, a ``kernels`` JSON line,
     and as the last line ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke_report.json``.
@@ -580,6 +590,7 @@ def phase_suite(device) -> dict:
     from repro_torch.core import (APPS, HIGH_LOCALITY, LOW_LOCALITY,
                                   PAPER_ARCHITECTURES, app_traces, geomean,
                                   normalized_ipc, run_suite)
+    from repro_torch.core import figures
     from repro_torch.kernels import ata_probe_rank as kmod
 
     t0 = time.perf_counter()
@@ -626,6 +637,14 @@ def phase_suite(device) -> dict:
         f"low-locality {100 * (lo - 1):.2f}%")
     for arch, s in wall.items():
         log(f"suite wall time {arch}: {s:.3f} s")
+    # Fig. 9, Fig. 10 and Table I from the same results: no extra
+    # simulation
+    rows = {"fig9": figures.fig9(suite), "fig10": figures.fig10(suite),
+            "table1": figures.table1(suite)}
+    log_rows("Fig. 9 per-kernel IPC vs private", rows["fig9"])
+    log_rows("Fig. 10 L1 latency vs private", rows["fig10"])
+    log_rows("Table I (high-locality apps)", rows["table1"])
+    _SUITE.update(suite)
 
     # the plain probe backend on the card: bit-equal SimResults
     t0 = time.perf_counter()
@@ -656,11 +675,22 @@ def phase_suite(device) -> dict:
     return {"launches": launches, "wall_s": wall, "traces_s": traces_s,
             "profile": profiled,
             "normalized_ipc": ipc, "ata_gain_high": hi, "ata_gain_low": lo,
-            "fixture_max_rel_err": worst}
+            "fixture_max_rel_err": worst, "figures": rows}
 
 
-def profile_round_loop(device, rounds: int = 64) -> dict:
-    """Where a round's time goes: ``ata`` on the 46-kernel m=4 batch for
+#: the paper suite of phase 4, for the zoo table of phase 5
+_SUITE = {}
+
+
+def log_rows(title, rows) -> None:
+    """Figure rows (name, derived), several to a line."""
+    log(f"{title}:")
+    for i in range(0, len(rows), 6):
+        log("  " + "  ".join(f"{n}={d}" for n, d in rows[i:i + 6]))
+
+
+def profile_round_loop(device, rounds: int = 64, arch: str = "ata") -> dict:
+    """Where a round's time goes: ``arch`` on the 46-kernel m=4 batch for
     ``rounds`` rounds under torch.profiler — host wall per round, device
     busy time per round (sum of kernel self times), kernel launches per
     round, and the kernels that take the most device time."""
@@ -669,17 +699,17 @@ def profile_round_loop(device, rounds: int = 64) -> dict:
     from repro_torch.core import APPS, app_traces, simulate_batch
     traces = [t for app in APPS if APPS[app].m == 4
               for t in app_traces(app, rounds=rounds)]
-    simulate_batch("ata", traces, device=device)            # warm
+    simulate_batch(arch, traces, device=device)             # warm
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        simulate_batch("ata", traces, device=device)
+        simulate_batch(arch, traces, device=device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     per_kernel = device_kernels(prof)
     busy_us = sum(d for d, _, _ in per_kernel)
     launches = sum(c for _, c, _ in per_kernel)
-    out = {"points": len(traces), "rounds": rounds,
+    out = {"arch": arch, "points": len(traces), "rounds": rounds,
            "wall_ms_per_round": wall * 1e3 / rounds,
            "device_busy_ms_per_round": busy_us / 1e3 / rounds,
            "device_busy_share": busy_us / 1e6 / wall,
@@ -687,7 +717,8 @@ def profile_round_loop(device, rounds: int = 64) -> dict:
            "top_kernels_ms_per_round": [
                (k[:90], d / 1e3 / rounds, c / rounds)
                for d, c, k in sorted(per_kernel, reverse=True)[:8]]}
-    log(f"ata round loop, P={len(traces)}: {out['wall_ms_per_round']:.3f} ms"
+    log(f"{arch} round loop, P={len(traces)}: "
+        f"{out['wall_ms_per_round']:.3f} ms"
         f" wall per round, device busy {out['device_busy_ms_per_round']:.4f}"
         f" ms ({100 * out['device_busy_share']:.1f}%), "
         f"{out['kernel_launches_per_round']:.1f} kernel launches per round")
@@ -697,7 +728,125 @@ def profile_round_loop(device, rounds: int = 64) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: serving exactness
+# phase 5: the contention-policy zoo
+# ---------------------------------------------------------------------------
+ZOO_ARCHITECTURES = ("ata_bypass", "ata_fifo", "ciao", "victim")
+SENSITIVITY = ROOT / "benchmarks" / "baselines" / "sensitivity_rounds96.json"
+SENSITIVITY_METRICS = ("ipc", "l1_hit_rate", "remote_hit_rate", "noc_flits",
+                       "l1_latency")
+ZOO_BACKEND_ROUNDS = 256     # cut rounds of the probe-backend comparison
+
+
+def phase_zoo(device) -> dict:
+    import dataclasses
+    import torch
+    from repro_torch.core import PAPER_GEOMETRY, APPS, make_trace, run_suite
+    from repro_torch.core import figures, simulate
+    from repro_torch.kernels import ata_probe_rank as kmod
+
+    kmod.launches = 0
+    suite, wall = {}, {}
+    for arch in ZOO_ARCHITECTURES:
+        t0 = time.perf_counter()
+        part = run_suite(archs=(arch,), device=device)
+        torch.cuda.synchronize()
+        wall[arch] = time.perf_counter() - t0
+        for app, cells in part.items():
+            suite.setdefault(app, {}).update(cells)
+    launches = kmod.launches
+    n_kernels = sum(len(c["victim"].per_kernel) for c in suite.values())
+    if n_kernels != 53 or len(suite) != 10:
+        raise AssertionError(f"zoo suite has {len(suite)} apps, {n_kernels}"
+                             " kernels")
+    # ata_bypass, ata_fifo and victim probe through the kernel; ciao not
+    if launches < 3 * 1536 * 2:
+        raise AssertionError(f"ata_probe_rank launched {launches} times, "
+                             f"want >= {3 * 1536 * 2}")
+    for app, cells in suite.items():
+        for arch, res in cells.items():
+            for r in res.per_kernel:
+                vals = [v for k, v in r._asdict().items()
+                        if k not in ("per_app", "noc")]
+                if not all(math.isfinite(v) for v in vals) or r.ipc <= 0:
+                    raise AssertionError(f"{app}/{arch}: non-finite {r}")
+    for arch, sec in wall.items():
+        log(f"zoo suite wall time {arch}: {sec:.3f} s")
+    log(f"ata_probe_rank launches over the zoo suite: {launches}")
+
+    # kernel 0 of every app against the stored reference results
+    with open(SRC / "repro_torch" / "data" /
+              "reference_zoo_kernel0.json") as f:
+        ref = json.load(f)["results"]
+    worst = 0.0
+    for app, cells in suite.items():
+        for arch, res in cells.items():
+            worst = max(worst, max_rel_err(result_dict(res.per_kernel[0]),
+                                           ref[app][arch],
+                                           f"zoo fixture {app}/{arch}"))
+    log(f"kernel 0 of 10 apps x 4 zoo policies match the reference fixture "
+        f"(max rel err {worst:.3g})")
+
+    # the 18 ciao/victim cells of the committed sensitivity baseline
+    with open(SENSITIVITY) as f:
+        base = json.load(f)
+    cfg = base["config"]
+    trace = make_trace(dataclasses.replace(APPS[cfg["app"]],
+                                           rounds=cfg["rounds"]), kernel=0)
+    t0 = time.perf_counter()
+    n_cells, sens_worst, memo = 0, 0.0, {}
+    for c in base["cells"]:
+        if c["arch"] not in ZOO_ARCHITECTURES:
+            continue
+        geom = dataclasses.replace(PAPER_GEOMETRY, **{c["knob"]: c["value"]})
+        if (c["arch"], geom) not in memo:
+            memo[(c["arch"], geom)] = simulate(c["arch"], trace, geom,
+                                               device=device)
+        r = memo[(c["arch"], geom)]
+        got = {m: float(getattr(r, m)) for m in SENSITIVITY_METRICS}
+        want = {m: c[m] for m in SENSITIVITY_METRICS}
+        sens_worst = max(sens_worst, max_rel_err(
+            got, want, f"sensitivity {c['arch']} {c['knob']}={c['value']}"))
+        n_cells += 1
+    if n_cells != 18:
+        raise AssertionError(f"{n_cells} zoo cells in the sensitivity "
+                             "baseline, want 18")
+    sens_s = time.perf_counter() - t0
+    log(f"18 ciao/victim cells of {SENSITIVITY.name} hold on the card (max "
+        f"rel err {sens_worst:.3g}; {len(memo)} simulations, {sens_s:.2f} s)")
+
+    # both probe backends bit-equal for the policies that reach the kernel
+    t0 = time.perf_counter()
+    for arch in ("ata_bypass", "ata_fifo", "victim"):
+        a = run_suite(archs=(arch,), rounds=ZOO_BACKEND_ROUNDS,
+                      probe_backend="cuda", device=device)
+        b = run_suite(archs=(arch,), rounds=ZOO_BACKEND_ROUNDS,
+                      probe_backend="torch", device=device)
+        for app in a:
+            if ([tuple(r) for r in a[app][arch].per_kernel]
+                    != [tuple(r) for r in b[app][arch].per_kernel]):
+                raise AssertionError(f"{arch} {app}: cuda and torch probe "
+                                     "backends disagree")
+    backends_s = time.perf_counter() - t0
+    log(f"ata_bypass, ata_fifo, victim: cuda and torch probe backends "
+        f"bit-equal over 53 kernels at {ZOO_BACKEND_ROUNDS} rounds "
+        f"({backends_s:.2f} s)")
+
+    if not _SUITE:
+        raise AssertionError("the zoo table needs the paper suite of "
+                             "phase 'suite'")
+    table = figures.zoo_table({app: {**_SUITE[app], **suite[app]}
+                               for app in suite})
+    log_rows("zoo table (geomean IPC vs private, mean L1 hit rate, NoC "
+             "flits over 53 kernels)", table)
+    profiled = profile_round_loop(device, arch="victim")
+    return {"launches": launches, "wall_s": wall, "fixture_max_rel_err": worst,
+            "sensitivity_max_rel_err": sens_worst, "sensitivity_s": sens_s,
+            "backends_s": backends_s, "zoo_table": table,
+            "profile_victim": profiled}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: serving exactness
 # ---------------------------------------------------------------------------
 BASELINE = ROOT / "benchmarks" / "baselines" / "serving_rounds512.json"
 SERVE_COUNTERS = ("local_hits", "remote_hits", "recomputed_blocks",
@@ -819,7 +968,7 @@ def phase_serving_exact(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the serving main path at scale
+# phase 7: the serving main path at scale
 # ---------------------------------------------------------------------------
 SCALE_SHARDS = 16
 SCALE_MIX = ("chat", "rag")
@@ -1230,7 +1379,7 @@ def phase_wkv6(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 7-9: the LM inference path at full width
+# phases 8-10: the LM inference path at full width
 # ---------------------------------------------------------------------------
 LM_ARCHS = ("qwen3-0.6b", "rwkv6-3b")
 LM_SEEDS = {"qwen3-0.6b": 0, "rwkv6-3b": 1}
@@ -1638,6 +1787,7 @@ def main() -> int:
                      ("wkv6", lambda: phase_wkv6(device)),
                      ("goldens", lambda: phase_goldens(device)),
                      ("suite", lambda: phase_suite(device)),
+                     ("zoo", lambda: phase_zoo(device)),
                      ("serving_exact", lambda: phase_serving_exact(device)),
                      ("serving_scale", lambda: phase_serving_scale(device)),
                      ("lm_prefill", lambda: phase_lm_prefill(device)),
@@ -1666,7 +1816,8 @@ def main() -> int:
         "name": "ata_probe_rank", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ata_probe_rank.cu",
         "replaces": "src/repro/kernels/ata_probe_rank.py:54",
-        "launches": report["suite"]["launches"],
+        # the paper suite's and the zoo suite's runs, each counted from 0
+        "launches": report["suite"]["launches"] + report["zoo"]["launches"],
         "max_abs_err": report["kernels"]["max_abs_err"],
         "ms": t["device_ms"] if t["device_ms"] is not None else t["call_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -5,12 +5,15 @@ Public API:
   GpuGeometry, PAPER_GEOMETRY — simulated GPU (paper Table II)
   simulate, simulate_batch, Trace, SimResult — run traces through one
       architecture (a leading point axis batches same-shape traces)
-  PAPER_ARCHITECTURES         — ("private", "remote", "decoupled", "ata")
+  PAPER_ARCHITECTURES         — ("private", "remote", "decoupled", "ata");
+      registered_archs() adds the zoo: ata_bypass, ata_fifo, ciao, victim
   ArchPolicy, register_arch, get_arch, registered_archs — policy plug-in
   NocModel, register_noc, get_noc, registered_nocs — interconnect plug-in
   ReplacementPolicy           — L1 victim selection (LRU / FIFO / RANDOM)
   APPS, make_trace            — calibrated workload suite
   run_app, run_suite, normalized_ipc, geomean — experiment drivers
+  figures (module)            — Figs. 8–10, Table I and the zoo table
+      as rows of a run_suite result
 """
 from repro_torch.core.geometry import GpuGeometry, PAPER_GEOMETRY
 from repro_torch.core.simulator import (AppStats, NocStats, SimResult,

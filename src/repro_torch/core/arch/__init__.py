@@ -5,8 +5,9 @@ Public API:
   register_arch / get_arch / registered_archs — the policy registry
   PAPER_ARCHITECTURES — the four architectures the paper compares
 
-The four paper architectures register on import; external code adds
-more with ``register_arch(MyPolicy())``.
+The four paper architectures and the reference's four zoo variants
+register on import, in the reference's order; external code adds more
+with ``register_arch(MyPolicy())``.
 """
 from __future__ import annotations
 
@@ -18,6 +19,10 @@ from repro_torch.core.arch.private import PrivatePolicy
 from repro_torch.core.arch.remote import RemotePolicy
 from repro_torch.core.arch.decoupled import DecoupledPolicy
 from repro_torch.core.arch.ata import AtaPolicy
+from repro_torch.core.arch.ata_bypass import AtaBypassPolicy
+from repro_torch.core.arch.ciao import CiaoPolicy
+from repro_torch.core.arch.victim import VictimPolicy
+from repro_torch.core.tagarray import ReplacementPolicy
 
 #: The paper's comparison set (Figs. 8–10, Table I).
 PAPER_ARCHITECTURES: Tuple[str, ...] = ("private", "remote", "decoupled",
@@ -54,10 +59,18 @@ register_arch(PrivatePolicy())
 register_arch(RemotePolicy())
 register_arch(DecoupledPolicy())
 register_arch(AtaPolicy())
+register_arch(AtaBypassPolicy())
+register_arch(AtaPolicy(name="ata_fifo",
+                        replacement=ReplacementPolicy.FIFO))
+# contention-policy zoo: CIAO-style throttling stacks with the private
+# family, the victim tag buffer with the ATA family
+register_arch(CiaoPolicy())
+register_arch(VictimPolicy())
 
 __all__ = [
     "TAG_CHECK", "ArchPolicy", "L1Outcome", "RequestBatch",
     "PrivatePolicy", "RemotePolicy", "DecoupledPolicy", "AtaPolicy",
+    "AtaBypassPolicy", "CiaoPolicy", "VictimPolicy",
     "PAPER_ARCHITECTURES", "register_arch", "get_arch",
     "registered_archs",
 ]

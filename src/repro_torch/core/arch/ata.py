@@ -21,13 +21,34 @@ from repro_torch.core.probe import fused_probe_rank
 class AtaPolicy(ArchPolicy):
     name: str = "ata"
 
+    @property
+    def stack_key(self) -> str:
+        # the whole ATA family (base, FIFO replacement, fill bypass,
+        # victim buffer) shares one round dataflow
+        return "ata"
+
+    def _victim_prefilter(self, l1: tagarray.TagState, reqs: RequestBatch):
+        """Hook: mask of requests a victim structure can serve locally.
+
+        Probed on L1 miss *before* the remote path — a hit here is
+        served inside the core's own L1 complex (one extra sequential
+        tag check) and never enters the remote-port contention group or
+        crosses the crossbar. The base policy has no victim structure:
+        ``None`` leaves the stage as it is.
+        """
+        return None
+
     def l1_stage(self, geom, l1: tagarray.TagState, reqs: RequestBatch, t,
                  *, backend=None) -> L1Outcome:
+        # victim prefilter: read misses served by a victim structure
+        # (when the subclass provides one) skip the remote path.
+        pre = self._victim_prefilter(l1, reqs)
         # aggregated tag array: all cluster tags compared in parallel,
         # zero added latency, zero probe traffic — plus winner pick and
         # remote-port arbitration, fused under the selected backend
         # (repro_torch.core.probe; the backends are bit-exact).
-        pr = fused_probe_rank(geom, l1, reqs, backend=backend)
+        pr = fused_probe_rank(geom, l1, reqs, pre_served=pre,
+                              backend=backend)
         local_hit, remote_ok = pr.local_hit, pr.remote_ok
         # only *actual* remote hits occupy the remote data port — the
         # filtering that is the paper's core contention win.
@@ -40,6 +61,13 @@ class AtaPolicy(ArchPolicy):
                         geom.lat_l1 + geom.lat_xbar
                         + pr.prank.to(torch.float32) * geom.svc_port,
                         float(TAG_CHECK)))
+        local_hits = local_hit
+        if pre is not None:
+            vserved = pre & ~local_hit & ~reqs.is_write
+            served = served | vserved
+            local_hits = local_hits | vserved
+            l1_time = torch.where(vserved, geom.lat_l1 + float(TAG_CHECK),
+                                  l1_time)
         l1 = tagarray.touch(l1, reqs.core, reqs.set_idx, pr.touch_way, t,
                             local_hit, set_dirty=reqs.is_write)
         return L1Outcome(
@@ -52,7 +80,7 @@ class AtaPolicy(ArchPolicy):
             occupancy=occupancy,
             fill_cache=reqs.core,
             fill_set=reqs.set_idx,
-            local_hits=local_hit,
+            local_hits=local_hits,
             remote_hits=remote_ok,
             noc_flits=remote_ok.sum(dim=-1) * geom.flits_per_line,
             # only known remote hits put flits on the interconnect —

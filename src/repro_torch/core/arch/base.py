@@ -64,6 +64,8 @@ class L1Outcome(NamedTuple):
     local_hits: torch.Tensor        # bool, for hit-rate accounting
     remote_hits: torch.Tensor       # bool, served by a peer L1
     noc_flits: torch.Tensor         # (P,) float32 flit count this round
+    #: bool; True = skip the L1 fill of this request's return
+    bypass_fill: Optional[torch.Tensor] = None
     #: int32 core whose cache serves each request (the NoC source for
     #: remote transfers); None = the requesting core itself.
     noc_src: Optional[torch.Tensor] = None
@@ -79,9 +81,24 @@ class ArchPolicy:
     ``replacement`` selects the victim scheme the policy's tag probes and
     the shared fill stage use for this architecture's L1 arrays (the L2
     always runs LRU).
+
+    ``victim_ways`` / ``track_thrash`` declare the policy's TagState
+    extensions (victim tag buffer entries per cache, per-core thrash
+    counters); the simulator sizes the L1 state by them, and they stay
+    zero-sized for a policy that declares neither.
     """
     name: str
     replacement: ReplacementPolicy = ReplacementPolicy.LRU
+    victim_ways: int = 0
+    track_thrash: bool = False
+
+    @property
+    def stack_key(self) -> str:
+        """Dataflow-group tag: architectures with the same ``stack_key``
+        have one tag-state layout and one round dataflow, so a sweep may
+        run them as one group. The default — the policy's own name —
+        opts out; families of variants override it to share."""
+        return self.name
 
     def l1_stage(self, geom, l1: tagarray.TagState, reqs: RequestBatch,
                  t: torch.Tensor, *, backend: Optional[str] = None
@@ -90,6 +107,6 @@ class ArchPolicy:
 
         ``t`` is the round counter (int32 zero-dim tensor). ``backend``
         selects the probe lowering (``repro_torch.core.probe``); only
-        the ATA policy has a probe chain to lower, the others ignore it.
+        the ATA family has a probe chain to lower, the others ignore it.
         """
         raise NotImplementedError

@@ -57,6 +57,23 @@ class AppResult:
         return float(sum(r.noc_flits for r in self.per_kernel))
 
     @property
+    def noc_flits_injected(self) -> float:
+        # traffic routed by the modeled interconnect (core.noc) — unlike
+        # `noc_flits`, which also counts the memory-side L2/write-back
+        # flits the NoC layer excludes
+        return float(sum(r.noc.flits_injected for r in self.per_kernel))
+
+    @property
+    def noc_mean_queue_delay(self) -> float:
+        # interconnect queueing (core.noc): 0.0 under `ideal`
+        return _nanmean(r.noc.mean_queue_delay for r in self.per_kernel)
+
+    @property
+    def noc_max_link_util(self) -> float:
+        # hotspot link utilization, worst kernel
+        return float(max(r.noc.max_link_util for r in self.per_kernel))
+
+    @property
     def l2_accesses(self) -> float:
         return float(sum(r.l2_accesses for r in self.per_kernel))
 

@@ -1,9 +1,10 @@
 """Selectable probe backends for the ATA round loop.
 
-The aggregated-tag-array policy spends its round in one computation:
-probe the request batch against every cluster tag array, pick the
-per-request winner (self hit, else first hitting peer), and arbitrate
-the known remote hits at their serving caches' data ports.
+The aggregated-tag-array policies (``ata`` and its family) spend their
+round in one computation: probe the request batch against every cluster
+tag array, pick the per-request winner (self hit, else first hitting
+peer), and arbitrate the known remote hits at their serving caches' data
+ports.
 :func:`fused_probe_rank` is that whole chain as one op with two
 interchangeable lowerings, the **probe backend**:
 
@@ -66,7 +67,7 @@ class ProbeRank(NamedTuple):
     psize: torch.Tensor       # int32 — contention group size
 
 
-def _torch_path(geom, l1: tagarray.TagState, reqs) -> ProbeRank:
+def _torch_path(geom, l1: tagarray.TagState, reqs, deny) -> ProbeRank:
     G = geom.cluster_size
     hits, ways, dirt = tagarray.probe_many(l1, reqs.peers, reqs.set_idx,
                                            reqs.addr)
@@ -79,22 +80,33 @@ def _torch_path(geom, l1: tagarray.TagState, reqs) -> ProbeRank:
     src_slot = rmask.to(torch.uint8).argmax(dim=-1)
     src_cache = reqs.cluster * G + src_slot
     src_dirty = dirt.gather(-1, src_slot[..., None])[..., 0]
-    # writes are local-only (paper coherence rule); dirty remote copies
-    # divert the read to L2.
-    remote_ok = ~reqs.is_write & ~local_hit & any_remote & ~src_dirty
+    # denied lanes (writes, and prefilter-served reads) never take the
+    # remote port; dirty remote copies divert the read to L2.
+    remote_ok = ~deny & ~local_hit & any_remote & ~src_dirty
     prank, psize = group_rank(src_cache, remote_ok, geom.n_cores)
     return ProbeRank(local_hit, hit_way.to(torch.int32), remote_ok,
                      src_cache.to(torch.int32), prank, psize)
 
 
 def fused_probe_rank(geom, l1: tagarray.TagState, reqs, *,
+                     pre_served: Optional[torch.Tensor] = None,
                      backend: Optional[str] = None) -> ProbeRank:
-    """Probe + winner pick + port arbitration under one backend."""
+    """Probe + winner pick + port arbitration under one backend.
+
+    ``pre_served`` (optional (P, R) bool) marks requests a victim
+    structure will serve locally; they leave the remote contention group
+    as denied lanes, ``deny = is_write | pre_served`` (writes are
+    local-only, the paper's coherence rule): ``deny`` only clears
+    ``remote_ok``, which is the reference's ``remote_ok & ~pre_served``.
+    """
     backend = resolve_probe_backend(backend, reqs.addr.device)
+    deny = reqs.is_write
+    if pre_served is not None:
+        deny = deny | pre_served
     if backend == "torch":
-        return _torch_path(geom, l1, reqs)
+        return _torch_path(geom, l1, reqs, deny)
     return ProbeRank(*ata_probe_rank(
         reqs.set_idx, reqs.addr, reqs.core,
-        reqs.cluster * geom.cluster_size, reqs.is_write,
+        reqs.cluster * geom.cluster_size, deny,
         l1["tags"], l1["valid"], l1["dirty"],
         cluster_size=geom.cluster_size))

@@ -275,6 +275,8 @@ def _round(policy: ArchPolicy, noc_model: NocModel, geom, insn_per_req,
 
     # ---- L1 fill on L2 return (and on remote fetch: replicate locally) ----
     fill_mask = go_l2 | out.remote_hits
+    if out.bypass_fill is not None:
+        fill_mask = fill_mask & ~out.bypass_fill
     _, fway, _ = tagarray.probe(l1, out.fill_cache, out.fill_set, addr,
                                 policy=policy.replacement)
     l1, wb = tagarray.fill(l1, out.fill_cache, out.fill_set, fway, addr, t,
@@ -507,8 +509,12 @@ def simulate_batch(arch: str, traces: Sequence[Trace],
     ts = torch.arange(T, dtype=torch.int32, device=device)
     routing = _routing(g, P, C, m, device)
 
-    state = (tagarray.init_tag_state(C, geom.l1_sets, geom.l1_ways,
-                                     batch=P, device=device),
+    state = (tagarray.init_tag_state(
+                 C, geom.l1_sets, geom.l1_ways, batch=P, device=device,
+                 # the zoo extensions the policy declares (zero-sized
+                 # for the paper policies)
+                 victim_ways=policy.victim_ways,
+                 thrash_lanes=C if policy.track_thrash else 0),
              tagarray.init_tag_state(geom.l2_parts, geom.l2_sets,
                                      geom.l2_ways, batch=P, device=device),
              init_noc_state(noc_model.n_links(g), batch=P, device=device),

@@ -9,11 +9,19 @@ State is a dict of tensors with a leading simulation-point axis P (the
     valid: (P, n_arrays, n_sets, n_ways) bool
     dirty: (P, n_arrays, n_sets, n_ways) bool
 
-plus the reference's policy-zoo extension keys, always zero-sized here
-(no policy of this package uses them yet):
+plus the reference's two policy-zoo *state extensions*, zero-sized
+unless requested at ``init_tag_state`` time (the keys are always
+present, so every TagState has one structure):
 
-    vtags, vvalid, vborn : (P, n_arrays, 0)
-    thrash               : (P, 0)
+    vtags : (P, n_arrays, victim_ways) int32   victim tag buffer per array
+    vvalid: (P, n_arrays, victim_ways) bool    (fully associative, FIFO)
+    vborn : (P, n_arrays, victim_ways) int32   install timestamp per entry
+    thrash: (P, thrash_lanes) int32            per-lane thrash counters
+
+Zero-sized extensions are exact no-ops: ``victim_probe`` returns all
+misses and ``victim_insert``/``victim_invalidate`` return the state
+unchanged, so architectures that ignore the extensions are bit-exact
+with and without them.
 
 Requests are (P, R) tensors: request ``r`` of point ``p`` reads and
 writes only point ``p``'s arrays.
@@ -55,9 +63,11 @@ class ReplacementPolicy(enum.Enum):
 
 
 def init_tag_state(n_arrays: int, n_sets: int, n_ways: int, *, device,
-                   batch: int = 1) -> TagState:
+                   batch: int = 1, victim_ways: int = 0,
+                   thrash_lanes: int = 0) -> TagState:
     """Empty tag arrays with a leading point axis of ``batch``, on
-    ``device`` (required: nothing defaults to the CPU)."""
+    ``device`` (required: nothing defaults to the CPU); the zoo
+    extensions sized by ``victim_ways`` and ``thrash_lanes``."""
     shape = (batch, n_arrays, n_sets, n_ways)
     i32 = dict(dtype=torch.int32, device=device)
     b = dict(dtype=torch.bool, device=device)
@@ -67,10 +77,10 @@ def init_tag_state(n_arrays: int, n_sets: int, n_ways: int, *, device,
         "born": torch.full(shape, -1, **i32),
         "valid": torch.zeros(shape, **b),
         "dirty": torch.zeros(shape, **b),
-        "vtags": torch.zeros((batch, n_arrays, 0), **i32),
-        "vvalid": torch.zeros((batch, n_arrays, 0), **b),
-        "vborn": torch.full((batch, n_arrays, 0), -1, **i32),
-        "thrash": torch.zeros((batch, 0), **i32),
+        "vtags": torch.zeros((batch, n_arrays, victim_ways), **i32),
+        "vvalid": torch.zeros((batch, n_arrays, victim_ways), **b),
+        "vborn": torch.full((batch, n_arrays, victim_ways), -1, **i32),
+        "thrash": torch.zeros((batch, thrash_lanes), **i32),
     }
 
 
@@ -180,6 +190,12 @@ def _elem(state: TagState, array_idx, set_idx, way) -> torch.Tensor:
         + way.long()
 
 
+def entry(state: TagState, key: str, array_idx, set_idx, way
+          ) -> torch.Tensor:
+    """The ``key`` field of each request's (array, set, way)."""
+    return state[key].reshape(-1)[_elem(state, array_idx, set_idx, way)]
+
+
 def touch(state: TagState, array_idx, set_idx, way, now, mask, *,
           set_dirty=None) -> TagState:
     """Refresh LRU timestamp (and optionally dirty) for masked requests.
@@ -217,3 +233,92 @@ def fill(state: TagState, array_idx, set_idx, way, addr, now, mask, *,
         dirty=_write(state["dirty"], idx, win,
                      dirty if dirty is not None else False))
     return out, evicted_dirty
+
+
+def dead_victim(state: TagState, array_idx, set_idx, addr,
+                policy: ReplacementPolicy = ReplacementPolicy.LRU,
+                ) -> torch.Tensor:
+    """Predict whether a fill for ``addr`` would evict a *dead* line.
+
+    Dead = the replacement victim the ``policy`` would select is valid
+    but was never re-touched after its own install (``last == born``) —
+    the set is absorbing streaming traffic. Shared detector of the
+    CIAO-style policies (``ata_bypass`` fill bypass, ``ciao`` thrash
+    counters).
+    """
+    _, victim, _ = probe(state, array_idx, set_idx, addr, policy=policy)
+    at = (array_idx, set_idx, victim)
+    return (entry(state, "valid", *at)
+            & (entry(state, "last", *at) == entry(state, "born", *at)))
+
+
+# ---------------------------------------------------------------------------
+# Victim tag buffer (policy-zoo extension; see module docstring)
+# ---------------------------------------------------------------------------
+def victim_ways(state: TagState) -> int:
+    """Entries per array in the victim tag buffer (0 = disabled)."""
+    return state["vtags"].shape[-1]
+
+
+def _vrow(state: TagState, array_idx) -> torch.Tensor:
+    """Index of each request's buffer in the buffer viewed as
+    (P * n_arrays, victim_ways)."""
+    P, A, _ = state["vtags"].shape
+    p = torch.arange(P, device=array_idx.device)[:, None]
+    return p * A + array_idx.long()
+
+
+def victim_probe(state: TagState, array_idx, addr
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fully-associative lookup in each request's victim buffer.
+
+    Returns (hit, slot), each (P, R); slot is the first matching entry.
+    A zero-sized buffer never hits.
+    """
+    if victim_ways(state) == 0:
+        return (torch.zeros(addr.shape, dtype=torch.bool,
+                            device=addr.device),
+                torch.zeros(addr.shape, dtype=torch.int32,
+                            device=addr.device))
+    row = _vrow(state, array_idx)
+    vtags = _gather(state, "vtags", row)                   # (P, R, V)
+    vvalid = _gather(state, "vvalid", row)
+    match = (vtags == addr[..., None]) & vvalid
+    hit = match.any(dim=-1)
+    slot = match.to(torch.uint8).argmax(dim=-1).to(torch.int32)
+    return hit, slot
+
+
+def victim_invalidate(state: TagState, array_idx, slot, mask) -> TagState:
+    """Drop masked requests' victim entries (e.g. on promote back to L1)."""
+    if victim_ways(state) == 0:
+        return state
+    idx = _vrow(state, array_idx) * victim_ways(state) + slot.long()
+    field = state["vvalid"]
+    return dict(state, vvalid=_write(field, idx, _winner(field, idx, mask),
+                                     False))
+
+
+def victim_insert(state: TagState, array_idx, addr, now, mask) -> TagState:
+    """FIFO-install masked requests' tags into their victim buffers.
+
+    Each request's slot comes from the buffer as it stands before the
+    insert: invalid slots win first, then the oldest install. Duplicate
+    (array, slot) targets resolve last-writer-wins (the highest request
+    index, :func:`_winner`), like ``fill`` — a round that evicts several
+    lines from one cache keeps only the last (the buffer has one fill
+    port).
+    """
+    if victim_ways(state) == 0:
+        return state
+    row = _vrow(state, array_idx)
+    vvalid = _gather(state, "vvalid", row)                 # (P, R, V)
+    vborn = _gather(state, "vborn", row)
+    slot = torch.where(vvalid, vborn, INT32_MIN).argmin(dim=-1)
+    idx = row * victim_ways(state) + slot
+    win = _winner(state["vtags"], idx, mask)
+    return dict(
+        state,
+        vtags=_write(state["vtags"], idx, win, addr),
+        vvalid=_write(state["vvalid"], idx, win, True),
+        vborn=_write(state["vborn"], idx, win, now))

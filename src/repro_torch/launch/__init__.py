@@ -1,2 +1,3 @@
-"""Entry points of the LM substrate (the port of the reference's
-``launch/``): ``serve`` runs the ATA prefix-cache ModelServer."""
+"""Entry points of the port (the reference's ``launch/`` and
+``examples/paper_repro.py``): ``serve`` runs the ATA prefix-cache
+ModelServer, ``paper_repro`` the paper's figures over ``run_suite``."""

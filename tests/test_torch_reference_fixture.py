@@ -1,16 +1,19 @@
 """Reference results the CUDA card is checked against.
 
 The machine with the card has no JAX, so the reference package's
-``simulate()`` results for kernel 0 of every app under the four paper
-architectures, at the full 1536 rounds, are stored in
-``src/repro_torch/data/reference_kernel0.json``; ``chip_smoke.py``
-holds the port's full-suite run against them.
+``simulate()`` results for kernel 0 of every app at the full 1536
+rounds are stored in two files: the four paper architectures in
+``src/repro_torch/data/reference_kernel0.json``, the four zoo policies
+(``ata_bypass``, ``ata_fifo``, ``ciao``, ``victim``) in
+``src/repro_torch/data/reference_zoo_kernel0.json``. ``chip_smoke.py``
+holds the port's full-suite runs against them.
 
-Regenerate the file with::
+Regenerate them with::
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_reference_fixture.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_reference_fixture.py [paper|zoo]
 
-The test recomputes two of its cells with JAX and checks the file.
+(both when no argument is given). The tests recompute cells of each
+file with JAX and check the files.
 """
 import json
 import math
@@ -22,6 +25,7 @@ torch = pytest.importorskip("torch")
 
 from repro.core import APPS, PAPER_GEOMETRY, make_trace, simulate  # noqa: E402
 from repro.core.arch import PAPER_ARCHITECTURES  # noqa: E402
+from repro.core.arch import registered_archs  # noqa: E402
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -34,8 +38,13 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-FIXTURE = os.path.join(os.path.dirname(__file__), "..", "src", "repro_torch",
-                       "data", "reference_kernel0.json")
+DATA = os.path.join(os.path.dirname(__file__), "..", "src", "repro_torch",
+                    "data")
+FIXTURE = os.path.join(DATA, "reference_kernel0.json")
+ZOO_FIXTURE = os.path.join(DATA, "reference_zoo_kernel0.json")
+#: the reference's registered architectures beyond the paper's four
+ZOO_ARCHITECTURES = tuple(a for a in registered_archs()
+                          if a not in PAPER_ARCHITECTURES)
 
 
 def result_dict(r) -> dict:
@@ -50,9 +59,10 @@ def reference_cell(app: str, arch: str) -> dict:
     return result_dict(simulate(arch, make_trace(APPS[app], kernel=0)))
 
 
-def write_fixture(path: str = FIXTURE) -> None:
+def write_fixture(path: str = FIXTURE,
+                  archs=PAPER_ARCHITECTURES) -> None:
     results = {app: {arch: reference_cell(app, arch)
-                     for arch in PAPER_ARCHITECTURES} for app in APPS}
+                     for arch in archs} for app in APPS}
     doc = {
         "what": "repro.core.simulate() of kernel 0 of every app, paper "
                 "geometry, ideal NoC, default probe backend",
@@ -125,6 +135,45 @@ def test_port_reproduces_fixture_cell_bit_for_bit():
     assert got == want
 
 
+def test_zoo_fixture_covers_every_app_and_zoo_arch():
+    assert ZOO_ARCHITECTURES == ("ata_bypass", "ata_fifo", "ciao", "victim")
+    with open(ZOO_FIXTURE) as f:
+        doc = json.load(f)
+    assert set(doc["results"]) == set(APPS)
+    for app, cells in doc["results"].items():
+        assert set(cells) == set(ZOO_ARCHITECTURES), app
+        assert doc["rounds"][app] == 1536
+
+
+@pytest.mark.parametrize("app,arch", [("HS3D", "victim"),
+                                      ("cfd", "ata_bypass")])
+def test_zoo_fixture_matches_reference_simulate(app, arch):
+    with open(ZOO_FIXTURE) as f:
+        doc = json.load(f)
+    assert_result_close(reference_cell(app, arch), doc["results"][app][arch],
+                        f"{app}/{arch}")
+
+
+def test_port_reproduces_zoo_fixture_cell():
+    """The port on the CPU, full 1536 rounds: the victim buffer over a
+    whole kernel, against the stored reference cell."""
+    from repro_torch.core import APPS as PORT_APPS
+    from repro_torch.core import make_trace as port_make_trace
+    from repro_torch.core import simulate as port_simulate
+    with open(ZOO_FIXTURE) as f:
+        want = json.load(f)["results"]["b+tree"]["victim"]
+    got = result_dict(port_simulate(
+        "victim", port_make_trace(PORT_APPS["b+tree"], kernel=0),
+        device="cpu"))
+    assert_result_close(got, want, "b+tree/victim")
+
+
 if __name__ == "__main__":
-    write_fixture()
-    print(f"wrote {os.path.normpath(FIXTURE)}")
+    import sys
+    which = sys.argv[1] if len(sys.argv) > 1 else "all"
+    if which in ("paper", "all"):
+        write_fixture()
+        print(f"wrote {os.path.normpath(FIXTURE)}")
+    if which in ("zoo", "all"):
+        write_fixture(ZOO_FIXTURE, ZOO_ARCHITECTURES)
+        print(f"wrote {os.path.normpath(ZOO_FIXTURE)}")

@@ -161,7 +161,7 @@ def test_simulate_batch_rejects_mixed_shapes_and_bad_args():
     with pytest.raises(ValueError, match="same-shape"):
         simulate_batch("ata", [t_a, t_b], device="cpu")
     with pytest.raises(ValueError, match="arch must be one of"):
-        simulate("ata_fifo", t_a, device="cpu")
+        simulate("ata_lifo", t_a, device="cpu")
     with pytest.raises(ValueError, match="noc must be one of"):
         simulate("ata", t_a, noc="mesh", device="cpu")
     with pytest.raises(ValueError, match="needs CUDA tensors"):
