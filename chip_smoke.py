@@ -43,29 +43,45 @@ script then exits non-zero with no result line):
    ``torch`` probe backends bit-equal for the three policies that reach
    the probe kernel, at cut rounds; the zoo table; a profile of the
    ``victim`` round loop;
-6. serving exactness: the engine on the card against the port's numpy
+6. the sweep grid, multi-tenant mixes and the sensitivity report: the
+   report at the committed baseline's configuration (HS3D kernel 0, 96
+   rounds; solo, mix and NoC sections, the mix section from one
+   ``mix_grid_run``) gated by ``compare_reports`` against
+   ``benchmarks/baselines/sensitivity_rounds96.json``, with its 45 solo
+   cells also within rel 1e-6 of the baseline; every point of the
+   report's solo and NoC passes, and the composed points of two of its
+   mixes under ``ata`` and ``victim``, bit-equal to per-point
+   ``simulate()`` (phase 5's simulations reused); the NoC section's
+   ``ata``/``victim`` x ``crossbar``/``ring`` points against the
+   reference fixture ``reference_noc_HS3D.json``; ``cfd+HS3D`` at 1536
+   rounds under ``private`` and ``ata`` (``run_mixes``) against the
+   reference fixture ``reference_mix_cfd_HS3D.json``. The report and the
+   pair each have the launch counters zeroed just before and read just
+   after, and must launch ``ata_probe_rank`` exactly as often as their
+   passes owe (phases 4 and 5 are held to the same count);
+7. serving exactness: the engine on the card against the port's numpy
    oracle at the reference's test sizes (every policy x B, and the
    sequential stream), all 24 cells of the committed serving baseline
    (``benchmarks/baselines/serving_rounds512.json``), the ``cuda`` and
    ``torch`` probe backends bit-equal, NoC flit conservation;
-7. the serving main path at ``fig_serving_scale.py``'s shape cut to a
+8. the serving main path at ``fig_serving_scale.py``'s shape cut to a
    quarter of its depth: one 16-shard chat+rag stream of about 250,000
    requests replayed under ``ata`` at B=4, with the launch counters
    zeroed just before and read just after, and a profile of 64
    sub-rounds;
-8. the LM inference path at full width (qwen3-0.6b and rwkv6-3b, weights
+9. the LM inference path at full width (qwen3-0.6b and rwkv6-3b, weights
    made on the card from fixed seeds): prefill ``forward`` at B=1, T=4096
    on the "kernel" route, launch counters zeroed just before and read
    just after, held against the "ref" route;
-9. LM decode: 64 teacher-forced ``decode_step`` calls against
-   ``forward``, and a profiled decode step; for rwkv6 also against a
-   forward whose WKV6 is exact (f64), with per-layer counts of the bf16
-   WKV6 outputs that differ from the exact ones;
-10. ``ModelServer`` at the reference launcher's defaults (16 requests, 4
+10. LM decode: 64 teacher-forced ``decode_step`` calls against
+    ``forward``, and a profiled decode step; for rwkv6 also against a
+    forward whose WKV6 is exact (f64), with per-layer counts of the bf16
+    WKV6 outputs that differ from the exact ones;
+11. ``ModelServer`` at the reference launcher's defaults (16 requests, 4
     shards, block 16, 8 decode steps, ``ata``) for both models, launch
     counters zeroed just before and read just after: the directory's
     stats against ``run_workload``, and one request served cold and warm;
-11. the per-phase times, the card line again, a ``kernels`` JSON line,
+12. the per-phase times, the card line again, a ``kernels`` JSON line,
     and as the last line ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke_report.json``.
@@ -73,6 +89,7 @@ Details go to ``chiprun_out/chip_smoke_report.json``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import math
 import subprocess
@@ -583,6 +600,64 @@ def phase_goldens(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# grid runs and the launches they owe
+# ---------------------------------------------------------------------------
+#: the policies whose L1 stage launches ``ata_probe_rank`` once a round
+PROBING_ARCHS = ("ata", "ata_bypass", "ata_fifo", "victim")
+
+
+@contextlib.contextmanager
+def recorded_grid_runs():
+    """Records (points, results) of every ``SweepGrid.run`` made inside
+    the block, in order. An instrument of the checks: it launches
+    nothing and counts nothing."""
+    from repro_torch.core import sweep
+    runs, orig = [], sweep.SweepGrid.run
+
+    def run(self, *args, **kwargs):
+        out = orig(self, *args, **kwargs)
+        runs.append((list(self.points), out.results))
+        return out
+
+    sweep.SweepGrid.run = run
+    try:
+        yield runs
+    finally:
+        sweep.SweepGrid.run = orig
+
+
+def probe_launches_due(runs, device) -> int:
+    """The ``ata_probe_rank`` launches that these grid runs owe: within a
+    run, every batched pass launches the kernel once a round for each
+    probing architecture among its points (each member of a stacked
+    family runs its L1 stage on its own run of the pass's points). A
+    pass is one (architecture family, NoC family, geometry structure,
+    trace kind, probe backend); a trace kind fixes the rounds."""
+    from repro_torch.core import get_noc, trace_kind
+    from repro_torch.core.geometry import geom_structure
+    from repro_torch.core.probe import resolve_probe_backend
+    due = 0
+    for points, _ in runs:
+        member_passes = {
+            (p.arch, get_noc(p.noc).stack_key, geom_structure(p.geom),
+             trace_kind(p.trace))
+            for p in points if p.arch in PROBING_ARCHS
+            and resolve_probe_backend(p.probe_backend, device) == "cuda"}
+        due += sum(kind[0][0] for *_, kind in member_passes)
+    return due
+
+
+def check_launches(got: int, runs, device, where: str) -> int:
+    """``got`` launches counted from 0 over ``runs`` must be exactly what
+    the runs owe, and at least one."""
+    due = probe_launches_due(runs, device)
+    if got != due or got < 1:
+        raise AssertionError(f"{where}: ata_probe_rank launched {got} "
+                             f"times, the grid runs owe {due}")
+    return got
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 def phase_suite(device) -> dict:
@@ -599,25 +674,24 @@ def phase_suite(device) -> dict:
     log(f"trace generation for the suite ({n_traces} kernels): "
         f"{traces_s:.3f} s (part of each run_suite call below)")
 
-    kmod.launches = 0
     suite, wall = {}, {}
-    for arch in PAPER_ARCHITECTURES:
-        t0 = time.perf_counter()
-        part = run_suite(archs=(arch,), device=device)
-        torch.cuda.synchronize()
-        wall[arch] = time.perf_counter() - t0
-        for app, cells in part.items():
-            suite.setdefault(app, {}).update(cells)
-    launches = kmod.launches
+    with recorded_grid_runs() as runs:
+        kmod.launches = 0
+        for arch in PAPER_ARCHITECTURES:
+            t0 = time.perf_counter()
+            part = run_suite(archs=(arch,), device=device)
+            torch.cuda.synchronize()
+            wall[arch] = time.perf_counter() - t0
+            for app, cells in part.items():
+                suite.setdefault(app, {}).update(cells)
+        launches = kmod.launches
 
     n_kernels = sum(len(c["ata"].per_kernel) for c in suite.values())
     if n_kernels != 53 or len(suite) != 10:
         raise AssertionError(f"suite has {len(suite)} apps, {n_kernels} "
                              "kernels")
-    ata_batches = 2          # the m=2 apps and the m=4 apps
-    if launches < 1536 * ata_batches:
-        raise AssertionError(f"ata_probe_rank launched {launches} times, "
-                             f"want >= {1536 * ata_batches}")
+    # ata: one pass for the m=2 apps and one for the m=4 apps
+    check_launches(launches, runs, device, "paper suite")
     for app, cells in suite.items():
         for arch, res in cells.items():
             for r in res.per_kernel:
@@ -689,27 +763,38 @@ def log_rows(title, rows) -> None:
         log("  " + "  ".join(f"{n}={d}" for n, d in rows[i:i + 6]))
 
 
-def profile_round_loop(device, rounds: int = 64, arch: str = "ata") -> dict:
+def profile_round_loop(device, rounds: int = 64, arch="ata") -> dict:
     """Where a round's time goes: ``arch`` on the 46-kernel m=4 batch for
     ``rounds`` rounds under torch.profiler — host wall per round, device
     busy time per round (sum of kernel self times), kernel launches per
-    round, and the kernels that take the most device time."""
+    round, and the kernels that take the most device time. ``arch`` is
+    one architecture (a plain batch) or a tuple of one stacking family's
+    members (one stacked ``SweepGrid`` pass over every trace under
+    each)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import APPS, app_traces, simulate_batch
+    from repro_torch.core import APPS, SweepGrid, app_traces, simulate_batch
     traces = [t for app in APPS if APPS[app].m == 4
               for t in app_traces(app, rounds=rounds)]
-    simulate_batch(arch, traces, device=device)             # warm
+    if isinstance(arch, str):
+        def run():
+            return simulate_batch(arch, traces, device=device)
+    else:
+        grid = SweepGrid(arch, None, traces)
+
+        def run():
+            return grid.run(device=device).results
+    points = len(run())                                     # warm
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        simulate_batch(arch, traces, device=device)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     per_kernel = device_kernels(prof)
     busy_us = sum(d for d, _, _ in per_kernel)
     launches = sum(c for _, c, _ in per_kernel)
-    out = {"arch": arch, "points": len(traces), "rounds": rounds,
+    out = {"arch": arch, "points": points, "rounds": rounds,
            "wall_ms_per_round": wall * 1e3 / rounds,
            "device_busy_ms_per_round": busy_us / 1e3 / rounds,
            "device_busy_share": busy_us / 1e6 / wall,
@@ -717,7 +802,7 @@ def profile_round_loop(device, rounds: int = 64, arch: str = "ata") -> dict:
            "top_kernels_ms_per_round": [
                (k[:90], d / 1e3 / rounds, c / rounds)
                for d, c, k in sorted(per_kernel, reverse=True)[:8]]}
-    log(f"{arch} round loop, P={len(traces)}: "
+    log(f"{arch} round loop, P={points}: "
         f"{out['wall_ms_per_round']:.3f} ms"
         f" wall per round, device busy {out['device_busy_ms_per_round']:.4f}"
         f" ms ({100 * out['device_busy_share']:.1f}%), "
@@ -735,6 +820,9 @@ SENSITIVITY = ROOT / "benchmarks" / "baselines" / "sensitivity_rounds96.json"
 SENSITIVITY_METRICS = ("ipc", "l1_hit_rate", "remote_hit_rate", "noc_flits",
                        "l1_latency")
 ZOO_BACKEND_ROUNDS = 256     # cut rounds of the probe-backend comparison
+#: phase 5's per-point simulate() of the sensitivity baseline's zoo
+#: points, {(arch, geometry, noc): SimResult}, reused by phase 6
+_ZOO_MEMO = {}
 
 
 def phase_zoo(device) -> dict:
@@ -744,24 +832,23 @@ def phase_zoo(device) -> dict:
     from repro_torch.core import figures, simulate
     from repro_torch.kernels import ata_probe_rank as kmod
 
-    kmod.launches = 0
     suite, wall = {}, {}
-    for arch in ZOO_ARCHITECTURES:
-        t0 = time.perf_counter()
-        part = run_suite(archs=(arch,), device=device)
-        torch.cuda.synchronize()
-        wall[arch] = time.perf_counter() - t0
-        for app, cells in part.items():
-            suite.setdefault(app, {}).update(cells)
-    launches = kmod.launches
+    with recorded_grid_runs() as runs:
+        kmod.launches = 0
+        for arch in ZOO_ARCHITECTURES:
+            t0 = time.perf_counter()
+            part = run_suite(archs=(arch,), device=device)
+            torch.cuda.synchronize()
+            wall[arch] = time.perf_counter() - t0
+            for app, cells in part.items():
+                suite.setdefault(app, {}).update(cells)
+        launches = kmod.launches
     n_kernels = sum(len(c["victim"].per_kernel) for c in suite.values())
     if n_kernels != 53 or len(suite) != 10:
         raise AssertionError(f"zoo suite has {len(suite)} apps, {n_kernels}"
                              " kernels")
     # ata_bypass, ata_fifo and victim probe through the kernel; ciao not
-    if launches < 3 * 1536 * 2:
-        raise AssertionError(f"ata_probe_rank launched {launches} times, "
-                             f"want >= {3 * 1536 * 2}")
+    check_launches(launches, runs, device, "zoo suite")
     for app, cells in suite.items():
         for arch, res in cells.items():
             for r in res.per_kernel:
@@ -793,15 +880,15 @@ def phase_zoo(device) -> dict:
     trace = make_trace(dataclasses.replace(APPS[cfg["app"]],
                                            rounds=cfg["rounds"]), kernel=0)
     t0 = time.perf_counter()
-    n_cells, sens_worst, memo = 0, 0.0, {}
+    n_cells, sens_worst, memo = 0, 0.0, _ZOO_MEMO
     for c in base["cells"]:
         if c["arch"] not in ZOO_ARCHITECTURES:
             continue
         geom = dataclasses.replace(PAPER_GEOMETRY, **{c["knob"]: c["value"]})
-        if (c["arch"], geom) not in memo:
-            memo[(c["arch"], geom)] = simulate(c["arch"], trace, geom,
-                                               device=device)
-        r = memo[(c["arch"], geom)]
+        key = (c["arch"], geom, "ideal")
+        if key not in memo:
+            memo[key] = simulate(c["arch"], trace, geom, device=device)
+        r = memo[key]
         got = {m: float(getattr(r, m)) for m in SENSITIVITY_METRICS}
         want = {m: c[m] for m in SENSITIVITY_METRICS}
         sens_worst = max(sens_worst, max_rel_err(
@@ -846,7 +933,205 @@ def phase_zoo(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: serving exactness
+# phase 6: the sweep grid, multi-tenant mixes and the sensitivity report
+# ---------------------------------------------------------------------------
+MIX_FIXTURE = SRC / "repro_torch" / "data" / "reference_mix_cfd_HS3D.json"
+NOC_FIXTURE = SRC / "repro_torch" / "data" / "reference_noc_HS3D.json"
+SOLO_EXECUTABLES = 9         # the baseline's solo passes: 3 families x 3
+#                              l1_ways structures
+#: mixes of the report's mix section whose composed points under ``ata``
+#: and ``victim`` are held against per-point simulate(): a two-app and
+#: the three-app trace kind
+CHECKED_MIXES = (("cfd", "HS3D"), ("cfd", "b+tree", "HS3D"))
+
+
+def same_results(got, want, where: str) -> None:
+    """SimResults equal bit for bit, field by field (NaN where NaN)."""
+    g, w = result_dict(got), result_dict(want)
+    if json.dumps(g, sort_keys=True) != json.dumps(w, sort_keys=True):
+        diff = sorted(k for k in w if g[k] != w[k])
+        raise AssertionError(f"{where}: stacked != per-point in {diff}")
+
+
+def phase_sweep(device) -> dict:
+    import dataclasses
+    import torch
+    from repro_torch.core import (APPS, PAPER_NOCS, WorkloadMix,
+                                  make_trace, run_mixes, simulate)
+    from repro_torch.core import figures, report as sens
+    from repro_torch.kernels import ata_probe_rank as kmod
+
+    with open(SENSITIVITY) as f:
+        base = json.load(f)
+    cfg = base["config"]
+
+    # 1. the whole report at the baseline's configuration, gated; its
+    # launches counted from 0 just before and read just after
+    with recorded_grid_runs() as runs:
+        kmod.launches = 0
+        t0 = time.perf_counter()
+        mix_run = sens.mix_grid_run(rounds=cfg["rounds"], device=device)
+        rep = sens.run_sensitivity(
+            rounds=cfg["rounds"], kernels_per_app=1,
+            mix_pairings=sens.MIX_PAIRINGS, mix_run=mix_run,
+            noc_models=PAPER_NOCS, device=device)
+        torch.cuda.synchronize()
+        report_s = time.perf_counter() - t0
+        report_launches = kmod.launches
+    if len(runs) != 3:
+        raise AssertionError(f"the report made {len(runs)} grid runs, want "
+                             "3 (mix, solo, noc)")
+    section_runs = dict(zip(("mix", "solo", "noc"), runs))
+    due = {name: probe_launches_due([r], device)
+           for name, r in section_runs.items()}
+    check_launches(report_launches, runs, device, "sensitivity report")
+    sections = {name: sec["sweep"] for name, sec in
+                (("solo", rep), ("mix", rep["mix"]), ("noc", rep["noc"]))}
+    for name, sw in sections.items():
+        log(f"report {name}: {sw['n_points']} points, {sw['n_executables']}"
+            f" executables, {sw['wall_s']:.3f} s, {due[name]} "
+            "ata_probe_rank launches")
+    failures = sens.compare_reports(base, rep)
+    if failures:
+        raise AssertionError(f"compare_reports: {failures}")
+    if rep["sweep"]["n_executables"] > SOLO_EXECUTABLES:
+        raise AssertionError(f"solo executables {rep['sweep']} > "
+                             f"{SOLO_EXECUTABLES}")
+    got = {(c["arch"], c["knob"], c["value"]): c for c in rep["cells"]}
+    worst = 0.0
+    for c in base["cells"]:
+        key = (c["arch"], c["knob"], c["value"])
+        worst = max(worst, max_rel_err(
+            {m: got[key][m] for m in SENSITIVITY_METRICS},
+            {m: c[m] for m in SENSITIVITY_METRICS}, f"report cell {key}"))
+    if len(base["cells"]) != 45 or rep["schema"] != 3:
+        raise AssertionError(f"{len(base['cells'])} baseline cells, "
+                             f"schema {rep['schema']}")
+    log(f"sensitivity report (schema 3) gated against {SENSITIVITY.name}: "
+        f"no failure; 45 solo cells within rel {worst:.3g} of the "
+        f"baseline; {report_s:.2f} s; ata_probe_rank launched "
+        f"{report_launches} times (= what its passes owe)")
+    fairness = figures.mix_fairness(mix_run)
+    log_rows("mix fairness at 96 rounds", fairness)
+
+    # 2. the report's own passes against per-point simulate(), whole
+    # SimResults bit for bit: every point of the solo and NoC sections
+    # (phase 5's simulations reused) and the composed points of two
+    # mixes under ata and victim
+    t0 = time.perf_counter()
+    trace = make_trace(dataclasses.replace(APPS[cfg["app"]],
+                                           rounds=cfg["rounds"]), kernel=0)
+    memo, n_new, n_checked = _ZOO_MEMO, 0, 0
+    for name in ("solo", "noc"):
+        points, results = section_runs[name]
+        for p, r in zip(points, results):
+            if not np.array_equal(p.trace.addr, trace.addr):
+                raise AssertionError(f"{name}: a point off HS3D kernel 0")
+            key = (p.arch, p.geom, p.noc)
+            if key not in memo:
+                memo[key] = simulate(p.arch, trace, p.geom, noc=p.noc,
+                                     device=device)
+                n_new += 1
+            same_results(r, memo[key], f"{name} {p.arch}/{p.noc} "
+                         f"l1_ways={p.geom.l1_ways} noc_bw={p.geom.noc_bw} "
+                         f"hide={p.geom.hide}")
+            n_checked += 1
+    composed = {apps: WorkloadMix(apps=apps, rounds=cfg["rounds"]).compose(
+        trace.n_cores) for apps in CHECKED_MIXES}
+    checked = {(a, apps) for a in ("ata", "victim") for apps in composed}
+    points, results = section_runs["mix"]
+    for p, r in zip(points, results):
+        for apps, tr in composed.items():
+            if ((p.arch, apps) in checked and p.trace.n_apps == len(apps)
+                    and np.array_equal(p.trace.addr, tr.addr)):
+                same_results(r, simulate(p.arch, p.trace, p.geom,
+                                         device=device),
+                             f"mix {'+'.join(apps)}/{p.arch}")
+                checked.discard((p.arch, apps))
+    if checked:
+        raise AssertionError(f"mix points not found: {sorted(checked)}")
+    stacked_s = time.perf_counter() - t0
+    log(f"the report's passes == per-point simulate() on the card, whole "
+        f"SimResults bit for bit: {n_checked} solo and NoC points "
+        f"({n_new} simulated here, the rest from phase zoo) and "
+        f"{2 * len(CHECKED_MIXES)} composed mix points ({stacked_s:.2f} s)")
+
+    # 3. the NoC section's crossbar and ring points of ata and victim
+    # against the reference's per-point simulate()
+    with open(NOC_FIXTURE) as f:
+        noc_fix = json.load(f)
+    points, results = section_runs["noc"]
+    noc_worst, n_fix = 0.0, 0
+    for p, r in zip(points, results):
+        want = noc_fix["results"].get(p.arch, {}).get(p.noc, {}).get(
+            repr(float(p.geom.noc_bw)))
+        if want is not None:
+            noc_worst = max(noc_worst, max_rel_err(
+                result_dict(r), want,
+                f"noc fixture {p.arch}/{p.noc}/noc_bw={p.geom.noc_bw}"))
+            n_fix += 1
+    want_n = sum(len(v) for by_noc in noc_fix["results"].values()
+                 for v in by_noc.values())
+    if n_fix != want_n:
+        raise AssertionError(f"{n_fix} NoC points matched {NOC_FIXTURE.name}"
+                             f", want {want_n}")
+    log(f"{n_fix} crossbar/ring points of the report's NoC section match "
+        f"{NOC_FIXTURE.name} (max rel err {noc_worst:.3g})")
+
+    # 4. one pairing at full length against the reference fixture; its
+    # launches counted from 0 just before and read just after
+    with open(MIX_FIXTURE) as f:
+        fixture = json.load(f)
+    with recorded_grid_runs() as pair_runs:
+        kmod.launches = 0
+        t0 = time.perf_counter()
+        pair = run_mixes([WorkloadMix(apps=tuple(fixture["apps"]))],
+                         archs=tuple(fixture["results"]), device=device)
+        torch.cuda.synchronize()
+        pair_s = time.perf_counter() - t0
+        pair_launches = kmod.launches
+    check_launches(pair_launches, pair_runs, device, "cfd+HS3D pair")
+    (mid, per_arch), = pair.results.items()
+    pair_worst = 0.0
+    for arch, mr in per_arch.items():
+        want = fixture["results"][arch]
+        pair_worst = max(
+            pair_worst,
+            max_rel_err(result_dict(mr.shared), want["shared"],
+                        f"{mid}/{arch}/shared"),
+            *(max_rel_err(result_dict(s), w, f"{mid}/{arch}/solo{i}")
+              for i, (s, w) in enumerate(zip(mr.solo, want["solo"]))))
+    ws = {a: mr.weighted_speedup for a, mr in per_arch.items()}
+    unfair = {a: mr.unfairness for a, mr in per_arch.items()}
+    ratio = ws["ata"] / ws["private"]
+    log(f"{mid} at {fixture['rounds']} rounds ({pair.report.n_points} "
+        f"points, {pair.report.n_executables} passes, {pair_s:.2f} s, "
+        f"{pair_launches} ata_probe_rank launches) matches "
+        f"{MIX_FIXTURE.name} (max rel err {pair_worst:.3g}): "
+        f"weighted speedup private {ws['private']:.4f}, ata {ws['ata']:.4f};"
+        f" unfairness private {unfair['private']:.4f}, ata "
+        f"{unfair['ata']:.4f}; ata_vs_private {ratio:.4f}")
+
+    launches = report_launches + pair_launches
+    log(f"ata_probe_rank launches on the sweep phase's main path (the "
+        f"report and the pair): {launches}")
+    # what a stacked round costs: ata and victim over the same 46 traces
+    # in one pass, beside phases 4 and 5's single-policy profiles
+    profiled = profile_round_loop(device, rounds=32, arch=("ata", "victim"))
+    return {"launches": launches, "report_launches": report_launches,
+            "section_launches": due, "pair_launches": pair_launches,
+            "report_s": report_s, "sections": sections,
+            "report_max_rel_err": worst, "stacked_s": stacked_s,
+            "per_point_checked": n_checked, "per_point_simulated": n_new,
+            "noc_fixture_max_rel_err": noc_worst,
+            "pair": {"mix": mid, "s": pair_s, "max_rel_err": pair_worst,
+                     "weighted_speedup": ws, "unfairness": unfair,
+                     "ata_vs_private": ratio},
+            "fairness": fairness, "profile_stacked": profiled}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: serving exactness
 # ---------------------------------------------------------------------------
 BASELINE = ROOT / "benchmarks" / "baselines" / "serving_rounds512.json"
 SERVE_COUNTERS = ("local_hits", "remote_hits", "recomputed_blocks",
@@ -968,7 +1253,7 @@ def phase_serving_exact(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the serving main path at scale
+# phase 8: the serving main path at scale
 # ---------------------------------------------------------------------------
 SCALE_SHARDS = 16
 SCALE_MIX = ("chat", "rag")
@@ -1379,7 +1664,7 @@ def phase_wkv6(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 8-10: the LM inference path at full width
+# phases 9-11: the LM inference path at full width
 # ---------------------------------------------------------------------------
 LM_ARCHS = ("qwen3-0.6b", "rwkv6-3b")
 LM_SEEDS = {"qwen3-0.6b": 0, "rwkv6-3b": 1}
@@ -1788,6 +2073,7 @@ def main() -> int:
                      ("goldens", lambda: phase_goldens(device)),
                      ("suite", lambda: phase_suite(device)),
                      ("zoo", lambda: phase_zoo(device)),
+                     ("sweep", lambda: phase_sweep(device)),
                      ("serving_exact", lambda: phase_serving_exact(device)),
                      ("serving_scale", lambda: phase_serving_scale(device)),
                      ("lm_prefill", lambda: phase_lm_prefill(device)),
@@ -1816,8 +2102,10 @@ def main() -> int:
         "name": "ata_probe_rank", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ata_probe_rank.cu",
         "replaces": "src/repro/kernels/ata_probe_rank.py:54",
-        # the paper suite's and the zoo suite's runs, each counted from 0
-        "launches": report["suite"]["launches"] + report["zoo"]["launches"],
+        # the paper suite's, the zoo suite's and the sweep phase's runs,
+        # each counted from 0
+        "launches": (report["suite"]["launches"] + report["zoo"]["launches"]
+                     + report["sweep"]["launches"]),
         "max_abs_err": report["kernels"]["max_abs_err"],
         "ms": t["device_ms"] if t["device_ms"] is not None else t["call_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -82,7 +82,7 @@ class AtaPolicy(ArchPolicy):
             fill_set=reqs.set_idx,
             local_hits=local_hits,
             remote_hits=remote_ok,
-            noc_flits=remote_ok.sum(dim=-1) * geom.flits_per_line,
+            noc_flits=remote_ok.sum(dim=-1) * geom.point("flits_per_line"),
             # only known remote hits put flits on the interconnect —
             # the tag-side filtering that is the paper's core win
             noc_src=torch.where(remote_ok, pr.src_cache, reqs.core),

@@ -51,7 +51,7 @@ class DecoupledPolicy(ArchPolicy):
             fill_set=home_set,
             local_hits=hit,
             remote_hits=torch.zeros_like(hit),
-            noc_flits=hit.sum(dim=-1) * geom.flits_per_line,
+            noc_flits=hit.sum(dim=-1) * geom.point("flits_per_line"),
             # home-cache hits ship the line from the home core's port; a
             # line whose home is the requesting core never leaves it
             noc_src=home,

@@ -65,8 +65,8 @@ class RemotePolicy(ArchPolicy):
             fill_set=set_idx,
             local_hits=hit,
             remote_hits=remote_hit,
-            noc_flits=(miss.sum(dim=-1) * (G - 1)
-                       + remote_hit.sum(dim=-1) * geom.flits_per_line),
+            noc_flits=(miss.sum(dim=-1) * (G - 1) + remote_hit.sum(dim=-1)
+                       * geom.point("flits_per_line")),
             # Topology models see only the point-to-point data transfers;
             # the broadcast probes are priced above, on their own channels.
             noc_src=torch.where(remote_hit, src_cache, reqs.core),

@@ -92,5 +92,5 @@ class VictimPolicy(AtaPolicy):
             l1=state,
             # promotions of a dirty victim's frame write the old line back
             noc_flits=out.noc_flits
-            + promo_wb.sum(dim=-1) * geom.flits_per_line,
+            + promo_wb.sum(dim=-1) * geom.point("flits_per_line"),
         )

@@ -16,7 +16,11 @@ must be in it.
 * :func:`table1` — L1 hit rate, L2 accesses and kernel 0's NoC flits of
   the four paper architectures over the high-locality apps;
 * :func:`zoo_table` — every architecture of the suite: geomean IPC
-  against ``private``, mean L1 hit rate, NoC flits over all apps.
+  against ``private``, mean L1 hit rate, NoC flits over all apps;
+* :func:`mix_fairness` — ``benchmarks/fig_mix_fairness.py``'s rows from
+  one ``run_mixes`` result (a ``MixRun``, not a suite): weighted
+  speedup, unfairness and mix IPC per (mix, arch), and the
+  ``ata``-vs-``private`` weighted-speedup ratio per mix.
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.core.metrics import AppResult, geomean, normalized_ipc
+from repro_torch.core.metrics import (AppResult, MixRun, geomean,
+                                      normalized_ipc)
 from repro_torch.core.trace import HIGH_LOCALITY, LOW_LOCALITY
 
 Suite = Dict[str, Dict[str, AppResult]]
@@ -120,6 +125,28 @@ def zoo_table(suite: Suite) -> Rows:
         rows.append((f"zoo.{arch}.ipc_vs_private", f"{g:.4f}"))
         rows.append((f"zoo.{arch}.l1_hit_rate", f"{hr:.4f}"))
         rows.append((f"zoo.{arch}.noc_flits", f"{noc:.0f}"))
+    return rows
+
+
+def mix_fairness(mix_run: MixRun) -> Rows:
+    """Multi-tenant fairness per (mix, arch), and ``ata``'s weighted
+    speedup over ``private``'s per mix where both ran."""
+    rows = []
+    for mid, per_arch in mix_run.results.items():
+        for arch, mr in per_arch.items():
+            rows.append((f"fig_mix.{mid}.{arch}.weighted_speedup",
+                         f"{mr.weighted_speedup:.3f}"))
+            rows.append((f"fig_mix.{mid}.{arch}.unfairness",
+                         f"{mr.unfairness:.3f}"))
+            rows.append((f"fig_mix.{mid}.{arch}.ipc",
+                         f"{mr.shared.ipc:.2f}"))
+        if "ata" in per_arch and "private" in per_arch:
+            ratio = (per_arch["ata"].weighted_speedup
+                     / per_arch["private"].weighted_speedup)
+            rows.append((f"fig_mix.{mid}.ata_vs_private_ws",
+                         f"{ratio:.3f}"))
+    rows.append(("fig_mix.executables",
+                 str(mix_run.report.n_executables)))
     return rows
 
 

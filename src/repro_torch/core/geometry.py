@@ -12,14 +12,23 @@ The fields split into two kinds, as in the reference package:
   Python ints;
 * **scalar** fields (latencies, service times, rates) only enter the
   timing arithmetic. :class:`DeviceGeometry` turns them into float32
-  zero-dim tensors on the simulation device, so every timing expression
-  rounds in float32 exactly as the reference's traced ``GeomScalars``
-  do (Python-float arithmetic would round in float64).
+  tensors on the simulation device, one value per simulation point, so
+  every timing expression rounds in float32 exactly as the reference's
+  traced ``GeomScalars`` do (Python-float arithmetic would round in
+  float64), and points of one structure with different timing share
+  one batched pass (``repro_torch.core.sweep``).
+
+:func:`split_geometry` performs the split; :class:`DeviceGeometry`
+(the reference's ``TracedGeometry``) recombines one
+:class:`GeomStructure` with the stacked scalars of P geometries behind
+the same attribute names.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple, Sequence, Union
 
+import numpy as np
 import torch
 
 
@@ -83,31 +92,113 @@ GEOM_SCALAR_FIELDS = ("lat_l1", "lat_xbar", "lat_home", "lat_l2",
                       "issue_rate", "hide")
 
 
-class DeviceGeometry:
-    """A ``GpuGeometry`` view for the simulation stages.
+class GeomStructure(NamedTuple):
+    """The shape-determining subset of :class:`GpuGeometry` (hashable;
+    sweeps group geometries by it)."""
+    n_cores: int
+    cluster_size: int
+    l1_sets: int
+    l1_ways: int
+    l1_banks: int
+    l2_parts: int
+    l2_sets: int
+    l2_ways: int
 
-    Structure fields read as Python ints; timing fields as float32
-    zero-dim tensors on ``device`` (the reference's ``TracedGeometry``
-    over ``split_geometry``'s float32 scalars).
+    @property
+    def n_clusters(self) -> int:
+        return self.n_cores // self.cluster_size
+
+
+class GeomScalars(NamedTuple):
+    """The timing subset of :class:`GpuGeometry` as float32 values."""
+    lat_l1: np.float32
+    lat_xbar: np.float32
+    lat_home: np.float32
+    lat_l2: np.float32
+    lat_dram: np.float32
+    lat_probe: np.float32
+    svc_bank: np.float32
+    svc_port: np.float32
+    svc_probe: np.float32
+    svc_l2: np.float32
+    flits_per_line: np.float32
+    noc_bw: np.float32
+    noc_drain: np.float32
+    noc_queue: np.float32
+    ring_hop: np.float32
+    issue_rate: np.float32
+    hide: np.float32
+
+
+def geom_structure(geom: GpuGeometry) -> GeomStructure:
+    """The shape-determining key of ``geom``."""
+    return GeomStructure(*(getattr(geom, f) for f in GEOM_STRUCTURE_FIELDS))
+
+
+def split_geometry(geom: GpuGeometry):
+    """``geom`` -> (:class:`GeomStructure`, float32 :class:`GeomScalars`)."""
+    return geom_structure(geom), GeomScalars(
+        *(np.float32(getattr(geom, f)) for f in GEOM_SCALAR_FIELDS))
+
+
+class DeviceGeometry:
+    """A ``GpuGeometry`` view for the simulation stages over P points.
+
+    Structure fields read as Python ints, shared by every point. Timing
+    fields read as (P, 1) float32 tensors on ``device``, one value per
+    point, so they broadcast against the (P, R) per-request, (P, C)
+    per-core and (P, L) per-link operands of a round;
+    :meth:`point` gives the (P,) view for per-point counters. ``geoms``
+    is one geometry per point, all of one :class:`GeomStructure` (a
+    single geometry is one point). Every scalar is a dimensioned tensor
+    whatever P, so there is one code path: the float32 values, and the
+    float32 result of every expression they enter, are the same as the
+    reference's traced scalars give.
     """
 
-    __slots__ = ("geom", "_scalars")
+    __slots__ = ("structure", "_table", "_rows", "_cols")
 
-    def __init__(self, geom: GpuGeometry, device):
-        self.geom = geom
-        self._scalars = {
-            f: torch.tensor(float(getattr(geom, f)), dtype=torch.float32,
-                            device=device)
-            for f in GEOM_SCALAR_FIELDS}
+    def __init__(self, geoms: Union[GpuGeometry, Sequence[GpuGeometry]],
+                 device):
+        if isinstance(geoms, GpuGeometry):
+            geoms = [geoms]
+        structures = {geom_structure(g) for g in geoms}
+        if len(structures) != 1:
+            raise ValueError("DeviceGeometry needs geometries of one "
+                             f"structure, got {sorted(structures)}")
+        table = np.array([split_geometry(g)[1] for g in geoms],
+                         np.float32).T                     # (F, P)
+        self._init(structures.pop(),
+                   torch.from_numpy(np.ascontiguousarray(table)).to(device))
+
+    def _init(self, structure: GeomStructure, table: torch.Tensor) -> None:
+        self.structure = structure
+        self._table = table
+        self._rows = {f: table[i] for i, f in enumerate(GEOM_SCALAR_FIELDS)}
+        self._cols = {f: row[:, None] for f, row in self._rows.items()}
+
+    @classmethod
+    def _of(cls, structure: GeomStructure,
+            table: torch.Tensor) -> "DeviceGeometry":
+        g = cls.__new__(cls)
+        g._init(structure, table)
+        return g
 
     def __getattr__(self, name: str):
         if name in GEOM_STRUCTURE_FIELDS:
-            return getattr(self.geom, name)
+            return getattr(self.structure, name)
         if name in GEOM_SCALAR_FIELDS:
-            return self._scalars[name]
+            return self._cols[name]
         raise AttributeError(name)
 
     @property
     def n_clusters(self) -> int:
-        return self.geom.n_clusters
+        return self.structure.n_clusters
 
+    def point(self, name: str) -> torch.Tensor:
+        """Timing field ``name`` as a (P,) tensor, for per-point counters."""
+        return self._rows[name]
+
+    def take(self, points: slice) -> "DeviceGeometry":
+        """The view of a contiguous run of points (no copy)."""
+        return DeviceGeometry._of(self.structure, self._table[:, points])

@@ -82,6 +82,16 @@ class NocModel:
     they need with :meth:`n_links`."""
     name: str
 
+    @property
+    def stack_key(self) -> str:
+        """Stacking-family tag for sweeps: every built-in model carries
+        the same state dict (:func:`init_noc_state`), so they all share
+        the ``"noc"`` family and a grid mixing them runs one pass per
+        architecture family. A model that cannot share that state
+        overrides this with its own name (``SweepGrid`` rejects a
+        mismatched stack either way)."""
+        return "noc"
+
     def n_links(self, geom) -> int:
         """Link/port lanes of carried state this model uses (0 = none)."""
         return 0
@@ -92,24 +102,42 @@ class NocModel:
 
     @staticmethod
     def _count(state: NocState, traffic: NocTraffic, delay, *,
-               injected, delivered) -> NocState:
-        """Fold one round's conservation + delay accounting into state."""
+               injected, delivered, sum_delays=None) -> NocState:
+        """Fold one round's conservation + delay accounting into state.
+        ``sum_delays`` adds up the crossing requests' delays per point:
+        a plain ``sum`` by default, :func:`point_sum` from models whose
+        delays are fractional."""
         crossed = traffic.crossing
+        sum_delays = sum_delays or (lambda x: x.sum(dim=-1))
         return dict(
             state,
             injected=state["injected"] + injected,
             delivered=state["delivered"] + delivered,
             delay_sum=state["delay_sum"]
-            + torch.where(crossed, delay, 0.0).sum(dim=-1),
+            + sum_delays(torch.where(crossed, delay, 0.0)),
             delay_n=state["delay_n"] + crossed.sum(dim=-1).to(torch.float32),
         )
+
+
+def point_sum(x: torch.Tensor) -> torch.Tensor:
+    """(P,) float32 totals of a (P, N) float32 tensor of fractional terms.
+
+    A CUDA reduction picks its order of adds from the tensor's whole
+    shape, P included (for rows of 64 to 127 terms, 64 lanes per row at
+    P <= 15 and 32 at P >= 16), and float32 totals of fractional terms
+    depend on that order; a point's total would then differ between a
+    batched pass and the point run alone. Here the terms add in float64 and round once
+    to float32, which makes the total independent of the order. Totals
+    of whole numbers are exact in any order and use a plain ``sum``.
+    """
+    return x.sum(dim=-1, dtype=torch.float64).to(torch.float32)
 
 
 def port_rate(geom):
     """Per-port forwarding rate (flits/cycle): the cluster's probe
     network bandwidth shared across its cores' ports.
 
-    A float32 zero-dim tensor for the simulator's
+    A (P, 1) float32 tensor for the simulator's
     :class:`~repro_torch.core.geometry.DeviceGeometry`, a Python float
     for a host :class:`~repro_torch.core.geometry.GpuGeometry` (the
     serving engine's); either way the models convert it to float32

@@ -23,7 +23,9 @@ The port-arrival scatter-add runs as atomics on a card, in no fixed
 order. Flit counts are small whole numbers (4 per line or block), so
 the float32 sums are exact in any order; the fractional ``sent``
 amounts of a non-power-of-two rate only enter elementwise arithmetic
-and the ``delivered`` total.
+and the ``delivered`` total, which, like the delay total, adds in
+float64 (``base.point_sum``) so that a point's totals do not depend on
+the batch it runs in.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ import torch
 
 from repro_torch.core.contention import group_prefix_sum
 from repro_torch.core.noc.base import (NocModel, NocState, NocTraffic,
-                                       NocTransit, port_rate)
+                                       NocTransit, point_sum, port_rate)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +79,6 @@ class CrossbarNoc(NocModel):
         )
         new_state = self._count(new_state, traffic, delay,
                                 injected=arrivals.sum(dim=-1),
-                                delivered=sent.sum(dim=-1))
+                                delivered=point_sum(sent), sum_delays=point_sum)
         return NocTransit(state=new_state, delay=delay,
                           occupancy=occupancy)

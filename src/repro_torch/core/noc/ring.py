@@ -17,7 +17,9 @@ flit-*hops* per link; ``injected``/``delivered`` count at injection
 granularity like every other model.
 
 The per-link scatter-add runs as atomics on a card, in no fixed order;
-its terms are whole flit counts, so the float32 sums are exact.
+its terms are whole flit counts, so the float32 sums are exact. The
+delays (hops times ``ring_hop``) need not be whole, so their round total
+adds in float64 (``base.point_sum``).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.noc.base import (NocModel, NocState, NocTraffic,
-                                       NocTransit, port_rate)
+                                       NocTransit, point_sum, port_rate)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +81,7 @@ class RingNoc(NocModel):
             link_busy=state["link_busy"] + link_load / rate,
         )
         new_state = self._count(new_state, traffic, delay,
-                                injected=total, delivered=total)
+                                injected=total, delivered=total,
+                                sum_delays=point_sum)
         return NocTransit(state=new_state, delay=delay,
                           occupancy=occupancy)

@@ -13,9 +13,13 @@ flits through an interconnect model (``repro_torch.core.noc``).
 
 :func:`simulate_batch` stacks same-shape traces on a leading point axis
 P that every stage carries, and walks the rounds in a Python loop with
-static shapes; :func:`simulate` is the P=1 case. The loop never reads a
-device value back: the counters move to the host once, in
-:func:`_summarize`, which copies the reference's float64 host casts.
+static shapes; :func:`simulate` is the P=1 case, :func:`simulate_many`
+groups traces of mixed kinds. The loop never reads a device value back:
+the counters move to the host once, in :func:`_summarize`, which copies
+the reference's float64 host casts. Under all three runs
+:func:`_simulate_points`, whose points may also differ in architecture
+(members of one ``stack_key`` family), NoC model and geometry timing:
+the pass ``repro_torch.core.sweep.SweepGrid`` runs per bucket.
 
 Entry points run on ``device=None`` = ``"cuda"`` and raise where there
 is no card, unless the caller passes ``device="cpu"``.
@@ -29,11 +33,12 @@ import torch
 
 from repro_torch.core import tagarray
 from repro_torch.core.arch import ArchPolicy, get_arch, registered_archs
-from repro_torch.core.arch.base import RequestBatch
+from repro_torch.core.arch.base import L1Outcome, RequestBatch
 from repro_torch.core.contention import group_rank
-from repro_torch.core.geometry import (DeviceGeometry, GpuGeometry,
+from repro_torch.core.geometry import (GEOM_SCALAR_FIELDS, DeviceGeometry,
+                                       GeomStructure, GpuGeometry,
                                        PAPER_GEOMETRY)
-from repro_torch.core.noc import (NocModel, NocTraffic, get_noc,
+from repro_torch.core.noc import (NocModel, NocTraffic, NocTransit, get_noc,
                                   init_noc_state, registered_nocs)
 from repro_torch.core.probe import resolve_probe_backend
 
@@ -154,7 +159,12 @@ class Trace(_TraceBase):
 
 
 class AppStats(NamedTuple):
-    """Per-app attribution slice of one simulation (raw counters)."""
+    """Per-app attribution slice of one simulation (raw counters).
+
+    Raw sums only, never NaN, so results compare exactly; ratios are
+    derived properties (``l1_latency`` is NaN when no load of this app
+    was ever fully served inside the L1 complex, as in ``SimResult``).
+    """
     app: int            # dense app id (mix slot)
     cores: int          # cores assigned to this app
     instructions: float
@@ -165,6 +175,27 @@ class AppStats(NamedTuple):
     l1_lat_sum: float
     l1_lat_n: float
 
+    @property
+    def ipc(self) -> float:
+        return self.instructions / self.cycles
+
+    @property
+    def local_hit_rate(self) -> float:
+        return self.local_hits / self.requests
+
+    @property
+    def remote_hit_rate(self) -> float:
+        return self.remote_hits / self.requests
+
+    @property
+    def l1_hit_rate(self) -> float:
+        return (self.local_hits + self.remote_hits) / self.requests
+
+    @property
+    def l1_latency(self) -> float:
+        return self.l1_lat_sum / self.l1_lat_n if self.l1_lat_n \
+            else float("nan")
+
 
 class NocStats(NamedTuple):
     """Interconnect block of one simulation (``repro_torch.core.noc``).
@@ -172,7 +203,9 @@ class NocStats(NamedTuple):
     The flit counters track traffic under every model (``ideal``
     delivers everything instantly: ``injected == delivered``,
     ``queued == 0``); the queueing and utilization fields are 0.0 under
-    ``ideal``.
+    ``ideal``. ``injected == delivered + queued`` holds for every model,
+    up to float32 accumulation error when the per-port drain rate is not
+    exactly representable (:attr:`conserved`).
     """
     flits_injected: float
     flits_delivered: float
@@ -180,6 +213,15 @@ class NocStats(NamedTuple):
     mean_queue_delay: float    # mean NoC delay over crossing requests
     max_link_util: float       # hotspot: busiest link busy / cycles
     mean_link_util: float      # mean busy / cycles over *active* links
+
+    @property
+    def conserved(self) -> bool:
+        drift = abs(self.flits_injected
+                    - (self.flits_delivered + self.flits_queued))
+        return drift <= max(1e-6 * self.flits_injected, 1e-3)
+
+
+_ZERO_NOC = NocStats(0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
 
 
 class SimResult(NamedTuple):
@@ -197,7 +239,7 @@ class SimResult(NamedTuple):
     #: covering every core for solo traces)
     per_app: Tuple[AppStats, ...] = ()
     #: interconnect metrics (all-zero under the default ``ideal`` model)
-    noc: NocStats = NocStats(0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
+    noc: NocStats = _ZERO_NOC
 
 
 class _Routing(NamedTuple):
@@ -234,16 +276,94 @@ def _request_batch(geom, addr, is_write, routing: _Routing) -> RequestBatch:
                         set_idx=addr % geom.l1_sets, peers=routing.peers)
 
 
-def _round(policy: ArchPolicy, noc_model: NocModel, geom, insn_per_req,
-           core_app, state, addr, is_write, t, routing: _Routing, *,
-           probe_backend: str):
+class _Runs(NamedTuple):
+    """How one pass's P points split among the members of its stacked
+    groups: each entry is a member and its contiguous run of points. A
+    stage with one run works on the whole batch, with no slicing."""
+    archs: Tuple[Tuple[ArchPolicy, slice], ...]
+    nocs: Tuple[Tuple[NocModel, slice], ...]
+
+
+def _take(x, points: slice):
+    """A tensor dict or a NamedTuple of tensors, cut to a run of points
+    (views, no copy)."""
+    if isinstance(x, dict):
+        return {k: v[points] for k, v in x.items()}
+    return type(x)(*(v[points] for v in x))
+
+
+def _outcome_field(name: str, out: L1Outcome, reqs: RequestBatch, geom):
+    """An optional ``L1Outcome`` field, or where the policy left it
+    ``None``, the value the shared stages take for it."""
+    value = getattr(out, name)
+    if value is not None:
+        return value
+    if name == "bypass_fill":
+        return torch.zeros_like(out.served)
+    if name == "noc_src":
+        return reqs.core
+    return out.remote_hits * geom.flits_per_line        # noc_req_flits
+
+
+def _l1_stage(runs, geom, l1, reqs: RequestBatch, t, *,
+              probe_backend: str) -> L1Outcome:
+    """Each member's L1 stage on its own run of points, one outcome over
+    all P (the reference's ``lax.switch`` over a stacked family, without
+    computing the other members' branches)."""
+    if len(runs) == 1:
+        return runs[0][0].l1_stage(geom, l1, reqs, t, backend=probe_backend)
+    parts = []
+    for policy, points in runs:
+        g, r = geom.take(points), _take(reqs, points)
+        parts.append((policy.l1_stage(g, _take(l1, points), r, t,
+                                      backend=probe_backend), r, g))
+    outs = [o for o, _, _ in parts]
+    fields = {"l1": {k: torch.cat([o.l1[k] for o in outs])
+                     for k in outs[0].l1}}
+    for name in L1Outcome._fields[1:]:
+        fields[name] = None if all(getattr(o, name) is None
+                                   for o in outs) else torch.cat(
+            [_outcome_field(name, o, r, g) for o, r, g in parts])
+    return L1Outcome(**fields)
+
+
+def _fill_way(runs, l1, out: L1Outcome, addr) -> torch.Tensor:
+    """The L1 way each return fills, under each member's replacement."""
+    if len({policy.replacement for policy, _ in runs}) == 1:
+        return tagarray.probe(l1, out.fill_cache, out.fill_set, addr,
+                              policy=runs[0][0].replacement)[1]
+    return torch.cat([
+        tagarray.probe(_take(l1, points), out.fill_cache[points],
+                       out.fill_set[points], addr[points],
+                       policy=policy.replacement)[1]
+        for policy, points in runs])
+
+
+def _transit(runs, geom, noc, traffic: NocTraffic) -> NocTransit:
+    """Each member's NoC model on its own run of points."""
+    if len(runs) == 1:
+        return runs[0][0].transit(geom, noc, traffic)
+    parts = [model.transit(geom.take(points), _take(noc, points),
+                           _take(traffic, points))
+             for model, points in runs]
+    return NocTransit(
+        state={k: torch.cat([p.state[k] for p in parts])
+               for k in parts[0].state},
+        delay=torch.cat([p.delay for p in parts]),
+        occupancy=torch.cat([p.occupancy for p in parts]))
+
+
+def _round(runs: _Runs, geom, insn_per_req, core_app, state, addr,
+           is_write, t, routing: _Routing, *, probe_backend: str):
     """One simulation round for all P points; returns the new state and
     the round's (P, C) per-core served-load latencies.
 
-    state = (l1, l2, noc, stats); addr/is_write are the round's
-    (P, C, m) requests; ``t`` the round counter (int32 zero-dim tensor);
-    ``insn_per_req`` is (P, 1) or (P, C) float32; ``core_app`` the
-    (P, C) app-id channel of the per-app attribution.
+    ``runs`` names each point's architecture and NoC model (one member
+    each for a plain batch); ``geom`` is a :class:`DeviceGeometry` over
+    the P points. state = (l1, l2, noc, stats); addr/is_write are the
+    round's (P, C, m) requests; ``t`` the round counter (int32 zero-dim
+    tensor); ``insn_per_req`` is (P, 1) or (P, C) float32; ``core_app``
+    the (P, C) app-id channel of the per-app attribution.
     """
     l1, l2, noc, stats = state
     P, C, m = addr.shape
@@ -252,7 +372,8 @@ def _round(policy: ArchPolicy, noc_model: NocModel, geom, insn_per_req,
     R = reqs.n_requests
 
     # ---- L1 policy stage (the only architecture-specific part) -----------
-    out = policy.l1_stage(geom, l1, reqs, t, backend=probe_backend)
+    out = _l1_stage(runs.archs, geom, l1, reqs, t,
+                    probe_backend=probe_backend)
     l1 = out.l1
     go_l2 = out.go_l2
     noc_flits = out.noc_flits
@@ -271,27 +392,24 @@ def _round(policy: ArchPolicy, noc_model: NocModel, geom, insn_per_req,
     l2 = tagarray.touch(l2, l2_part, l2_set, l2_way, t, go_l2 & l2_hit)
     l2, _ = tagarray.fill(l2, l2_part, l2_set, l2_way, addr, t,
                           go_l2 & ~l2_hit)
-    noc_flits = noc_flits + go_l2.sum(dim=-1) * geom.flits_per_line
+    noc_flits = noc_flits + go_l2.sum(dim=-1) * geom.point("flits_per_line")
 
     # ---- L1 fill on L2 return (and on remote fetch: replicate locally) ----
     fill_mask = go_l2 | out.remote_hits
-    if out.bypass_fill is not None:
+    if out.bypass_fill is not None:       # None: every return fills
         fill_mask = fill_mask & ~out.bypass_fill
-    _, fway, _ = tagarray.probe(l1, out.fill_cache, out.fill_set, addr,
-                                policy=policy.replacement)
+    fway = _fill_way(runs.archs, l1, out, addr)
     l1, wb = tagarray.fill(l1, out.fill_cache, out.fill_set, fway, addr, t,
                            fill_mask, dirty=reqs.is_write)
-    noc_flits = noc_flits + wb.sum(dim=-1) * geom.flits_per_line
+    noc_flits = noc_flits + wb.sum(dim=-1) * geom.point("flits_per_line")
 
     # ---- NoC stage: remote flits through the interconnect model ----------
-    req_flits = out.noc_req_flits
-    if req_flits is None:
-        req_flits = out.remote_hits * geom.flits_per_line
+    req_flits = _outcome_field("noc_req_flits", out, reqs, geom)
     traffic = NocTraffic(
-        src=out.noc_src if out.noc_src is not None else reqs.core,
+        src=_outcome_field("noc_src", out, reqs, geom),
         dst=reqs.core, cluster=reqs.cluster, flits=req_flits,
         mask=req_flits > 0)
-    transit = noc_model.transit(geom, noc, traffic)
+    transit = _transit(runs.nocs, geom, noc, traffic)
     noc = transit.state
     occupancy = torch.maximum(occupancy, transit.occupancy)
 
@@ -449,8 +567,147 @@ def _check_noc(noc: str) -> None:
 
 def trace_kind(trace: Trace) -> tuple:
     """The batching key of a trace: (addr shape, insn shape, n_apps).
-    Only traces of one kind stack into one :func:`simulate_batch`."""
+    Only traces of one kind stack into one batched pass."""
     return (trace.addr.shape, np.shape(trace.insn_per_req), trace.n_apps)
+
+
+def _l1_state(geom, policies: Sequence[ArchPolicy], P: int, device):
+    """L1 tag state sized for a whole stacked group: the zoo extensions
+    (victim buffer, thrash counters) take the largest any member
+    declares; a member that ignores an extension is bit-exact whether it
+    is zero-sized or not."""
+    return tagarray.init_tag_state(
+        geom.n_cores, geom.l1_sets, geom.l1_ways, batch=P, device=device,
+        victim_ways=max(p.victim_ways for p in policies),
+        thrash_lanes=geom.n_cores if any(p.track_thrash for p in policies)
+        else 0)
+
+
+def _l2_state(geom, P: int, device):
+    return tagarray.init_tag_state(geom.l2_parts, geom.l2_sets, geom.l2_ways,
+                                   batch=P, device=device)
+
+
+def _noc_state(geom, models: Sequence[NocModel], P: int, device):
+    """Carried NoC state sized for a whole stacked model group (the
+    largest ``n_links``); ``ideal`` is bit-exact over any size."""
+    return init_noc_state(max(m.n_links(geom) for m in models), batch=P,
+                          device=device)
+
+
+def _member_runs(members: Sequence, names: Sequence[str]) -> tuple:
+    """((member, slice), ...) over the runs of equal consecutive names."""
+    by_name = {m.name: m for m in members}
+    runs, lo = [], 0
+    for i in range(1, len(names) + 1):
+        if i == len(names) or names[i] != names[lo]:
+            runs.append((by_name[names[lo]], slice(lo, i)))
+            lo = i
+    return tuple(runs)
+
+
+def _simulate_points(archs: Sequence[str], nocs: Sequence[str],
+                     traces: Sequence[Trace], geoms: Sequence[GpuGeometry],
+                     *, probe_backend: str, device) -> List[SimResult]:
+    """One batched pass over P points of one kind and one geometry
+    structure, each with its own architecture, NoC model, geometry
+    timing and trace; results in input order.
+
+    The points are ordered so that each architecture's points, and
+    within them each NoC model's, are contiguous. Every stage but the
+    L1 policy stage, the fill's replacement choice and the NoC model
+    runs once over all P points; those three run once per member on its
+    run of points (:func:`_l1_stage`, :func:`_fill_way`,
+    :func:`_transit`). A pass whose points share one architecture and
+    one NoC model launches exactly what a plain batch does. Each point's
+    result equals its own :func:`simulate` bit for bit.
+    """
+    arch_rank = {a: i for i, a in enumerate(registered_archs())}
+    noc_rank = {n: i for i, n in enumerate(registered_nocs())}
+    order = sorted(range(len(traces)),
+                   key=lambda i: (arch_rank[archs[i]], noc_rank[nocs[i]]))
+    archs = [archs[i] for i in order]
+    nocs = [nocs[i] for i in order]
+    traces = [traces[i] for i in order]
+    T, C, m = traces[0].addr.shape
+    P = len(traces)
+    n_apps = traces[0].n_apps
+    policies = [get_arch(a) for a in dict.fromkeys(archs)]
+    models = [get_noc(n) for n in dict.fromkeys(nocs)]
+    runs = _Runs(_member_runs(policies, archs), _member_runs(models, nocs))
+    g = DeviceGeometry([geoms[i] for i in order], device)
+
+    # round-major, so each round's (P, C, m) slice is contiguous
+    addr = torch.from_numpy(np.stack([t.addr for t in traces], axis=1)
+                            ).to(device)
+    is_write = torch.from_numpy(np.stack([t.is_write for t in traces],
+                                         axis=1)).to(device)
+    insn = torch.from_numpy(np.stack(
+        [np.asarray(t.insn_per_req, np.float32).reshape(-1)
+         for t in traces])).to(device)                        # (P, 1|C)
+    core_app_np = np.stack([t.core_app_ids for t in traces]).astype(np.int64)
+    core_app = torch.from_numpy(core_app_np).to(device)
+    ts = torch.arange(T, dtype=torch.int32, device=device)
+    routing = _routing(g, P, C, m, device)
+
+    state = (_l1_state(g, policies, P, device), _l2_state(g, P, device),
+             _noc_state(g, models, P, device),
+             _init_stats(g, P, n_apps, device))
+    served_lat = torch.empty((T, P, C), dtype=torch.float32, device=device)
+    for i in range(T):
+        state, served_lat[i] = _round(runs, g, insn, core_app, state,
+                                      addr[i], is_write[i], ts[i], routing,
+                                      probe_backend=probe_backend)
+    stats = {k: v.cpu().numpy() for k, v in state[3].items()}
+    stats["app_lat_sum"] = _fold_app_lat(served_lat.cpu().numpy(),
+                                         core_app_np, n_apps)
+    noc_state = {k: v.cpu().numpy() for k, v in state[2].items()}
+    out: List[Optional[SimResult]] = [None] * P
+    for b, (i, tr) in enumerate(zip(order, traces)):
+        out[i] = _summarize({**{k: v[b] for k, v in stats.items()},
+                             "noc": {k: v[b] for k, v in noc_state.items()}},
+                            tr)
+    return out
+
+
+def round_signature(group: Tuple[str, ...], arch: str,
+                    structure: GeomStructure, round_shape: Tuple[int, int],
+                    insn_shape: Tuple[int, ...] = (), n_apps: int = 1,
+                    noc_group: Tuple[str, ...] = ("ideal",),
+                    noc: str = "ideal") -> tuple:
+    """The carried state one round of ``arch`` under ``noc`` returns, as
+    ((stage, key, shape, dtype), ...), with the L1 state sized for the
+    whole ``group`` and the NoC state for the whole ``noc_group``.
+
+    Members that stack into one pass must return the same signature: a
+    member's state runs are concatenated back into one state after its
+    stage. The round runs on the ``meta`` device (shapes and dtypes, no
+    data) on the plain probe lowering; the ``cuda`` lowering returns the
+    same tensors by contract (its kernel is held bit-equal to it).
+    ``repro_torch.core.sweep.SweepGrid`` validates stacking with this.
+    """
+    C, m = round_shape
+    dev = torch.device("meta")
+    geom = DeviceGeometry._of(
+        structure, torch.zeros((len(GEOM_SCALAR_FIELDS), 1), device=dev))
+    state = (_l1_state(geom, [get_arch(a) for a in group], 1, dev),
+             _l2_state(geom, 1, dev),
+             _noc_state(geom, [get_noc(n) for n in noc_group], 1, dev),
+             _init_stats(geom, 1, n_apps, dev))
+    insn = torch.zeros((1,) + (tuple(insn_shape) or (1,)),
+                       dtype=torch.float32, device=dev)
+    runs = _Runs(((get_arch(arch), slice(None)),),
+                 ((get_noc(noc), slice(None)),))
+    new_state, _ = _round(
+        runs, geom, insn, torch.zeros((1, C), dtype=torch.int64, device=dev),
+        state, torch.zeros((1, C, m), dtype=torch.int32, device=dev),
+        torch.zeros((1, C, m), dtype=torch.bool, device=dev),
+        torch.zeros((), dtype=torch.int32, device=dev),
+        _routing(geom, 1, C, m, dev), probe_backend="torch")
+    return tuple((stage, k, tuple(v.shape), str(v.dtype))
+                 for stage, part in zip(("l1", "l2", "noc", "stats"),
+                                        new_state)
+                 for k, v in part.items())
 
 
 def simulate(arch: str, trace: Trace, geom: GpuGeometry = PAPER_GEOMETRY,
@@ -475,6 +732,7 @@ def simulate_batch(arch: str, traces: Sequence[Trace],
     The traces stack on a leading point axis P that every stage of every
     round carries; each point's result equals its own :func:`simulate`
     bit for bit (points never read each other's state).
+    :func:`simulate_many` takes traces of mixed kinds.
     """
     _check_arch(arch)
     _check_noc(noc)
@@ -486,49 +744,31 @@ def simulate_batch(arch: str, traces: Sequence[Trace],
     if len(kinds) != 1:
         raise ValueError(
             f"simulate_batch needs same-shape, same-kind traces "
-            f"((T, C, m), insn shape, n_apps), got {sorted(kinds)}")
-    T, C, m = traces[0].addr.shape
-    if C != geom.n_cores:
-        raise ValueError(f"traces have {C} cores, geometry {geom.n_cores}")
+            f"((T, C, m), insn shape, n_apps), got {sorted(kinds)}; use "
+            "simulate_many for mixed kinds")
+    if traces[0].n_cores != geom.n_cores:
+        raise ValueError(f"traces have {traces[0].n_cores} cores, geometry "
+                         f"{geom.n_cores}")
     P = len(traces)
-    n_apps = traces[0].n_apps
-    policy = get_arch(arch)
-    noc_model = get_noc(noc)
-    g = DeviceGeometry(geom, device)
+    return _simulate_points([arch] * P, [noc] * P, traces, [geom] * P,
+                            probe_backend=probe_backend, device=device)
 
-    # round-major, so each round's (P, C, m) slice is contiguous
-    addr = torch.from_numpy(np.stack([t.addr for t in traces], axis=1)
-                            ).to(device)
-    is_write = torch.from_numpy(np.stack([t.is_write for t in traces],
-                                         axis=1)).to(device)
-    insn = torch.from_numpy(np.stack(
-        [np.asarray(t.insn_per_req, np.float32).reshape(-1)
-         for t in traces])).to(device)                        # (P, 1|C)
-    core_app_np = np.stack([t.core_app_ids for t in traces]).astype(np.int64)
-    core_app = torch.from_numpy(core_app_np).to(device)
-    ts = torch.arange(T, dtype=torch.int32, device=device)
-    routing = _routing(g, P, C, m, device)
 
-    state = (tagarray.init_tag_state(
-                 C, geom.l1_sets, geom.l1_ways, batch=P, device=device,
-                 # the zoo extensions the policy declares (zero-sized
-                 # for the paper policies)
-                 victim_ways=policy.victim_ways,
-                 thrash_lanes=C if policy.track_thrash else 0),
-             tagarray.init_tag_state(geom.l2_parts, geom.l2_sets,
-                                     geom.l2_ways, batch=P, device=device),
-             init_noc_state(noc_model.n_links(g), batch=P, device=device),
-             _init_stats(g, P, n_apps, device))
-    served_lat = torch.empty((T, P, C), dtype=torch.float32, device=device)
-    for i in range(T):
-        state, served_lat[i] = _round(policy, noc_model, g, insn, core_app,
-                                      state, addr[i], is_write[i], ts[i],
-                                      routing, probe_backend=probe_backend)
-    stats = {k: v.cpu().numpy() for k, v in state[3].items()}
-    stats["app_lat_sum"] = _fold_app_lat(served_lat.cpu().numpy(),
-                                         core_app_np, n_apps)
-    noc_state = {k: v.cpu().numpy() for k, v in state[2].items()}
-    return [_summarize({**{k: v[b] for k, v in stats.items()},
-                        "noc": {k: v[b] for k, v in noc_state.items()}},
-                       tr)
-            for b, tr in enumerate(traces)]
+def simulate_many(arch: str, traces: Sequence[Trace],
+                  geom: GpuGeometry = PAPER_GEOMETRY, *,
+                  noc: str = "ideal", probe_backend: Optional[str] = None,
+                  device=None) -> List[SimResult]:
+    """``simulate_batch`` over arbitrary traces: group by kind, preserve
+    input order."""
+    _check_arch(arch)
+    _check_noc(noc)
+    groups: Dict[tuple, List[int]] = {}
+    for i, t in enumerate(traces):
+        groups.setdefault(trace_kind(t), []).append(i)
+    out: List[Optional[SimResult]] = [None] * len(traces)
+    for idxs in groups.values():
+        for i, r in zip(idxs, simulate_batch(
+                arch, [traces[i] for i in idxs], geom, noc=noc,
+                probe_backend=probe_backend, device=device)):
+            out[i] = r
+    return out

@@ -6,15 +6,27 @@ rounds are stored in two files: the four paper architectures in
 ``src/repro_torch/data/reference_kernel0.json``, the four zoo policies
 (``ata_bypass``, ``ata_fifo``, ``ciao``, ``victim``) in
 ``src/repro_torch/data/reference_zoo_kernel0.json``. ``chip_smoke.py``
-holds the port's full-suite runs against them.
+holds the port's full-suite runs against them. A third file,
+``src/repro_torch/data/reference_mix_cfd_HS3D.json``, holds one
+multi-tenant pairing at full length: ``WorkloadMix(("cfd", "HS3D"))``
+at 1536 rounds under ``private`` and ``ata``, the composed trace and
+both slots' solo traces, each through per-point ``simulate()``
+(``chip_smoke.py``'s ``sweep`` phase holds the port's ``run_mixes``
+against it). A fourth, ``src/repro_torch/data/reference_noc_HS3D.json``,
+holds the non-ideal interconnects: HS3D kernel 0 at 96 rounds under
+``ata`` and ``victim`` x ``crossbar`` and ``ring`` x the sensitivity
+report's ``noc_bw`` values, each through per-point ``simulate()`` (the
+``sweep`` phase holds those points of the report's NoC section against
+it).
 
 Regenerate them with::
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_reference_fixture.py [paper|zoo]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_reference_fixture.py [paper|zoo|mix|noc]
 
-(both when no argument is given). The tests recompute cells of each
-file with JAX and check the files.
+(all four when no argument is given). The tests recompute cells of
+each file with JAX and check the files.
 """
+import dataclasses
 import json
 import math
 import os
@@ -24,6 +36,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.core import APPS, PAPER_GEOMETRY, make_trace, simulate  # noqa: E402
+from repro.core import WorkloadMix  # noqa: E402
 from repro.core.arch import PAPER_ARCHITECTURES  # noqa: E402
 from repro.core.arch import registered_archs  # noqa: E402
 
@@ -42,6 +55,18 @@ DATA = os.path.join(os.path.dirname(__file__), "..", "src", "repro_torch",
                     "data")
 FIXTURE = os.path.join(DATA, "reference_kernel0.json")
 ZOO_FIXTURE = os.path.join(DATA, "reference_zoo_kernel0.json")
+MIX_FIXTURE = os.path.join(DATA, "reference_mix_cfd_HS3D.json")
+#: the full-length pairing: a sharer co-run with a streamer
+MIX_APPS = ("cfd", "HS3D")
+MIX_ARCHS = ("private", "ata")
+NOC_FIXTURE = os.path.join(DATA, "reference_noc_HS3D.json")
+#: the NoC file's points: the stacked ATA family of the sensitivity
+#: report's NoC section, on the two models with queues and hops, at the
+#: section's noc_bw values (repro.core.report.NOC_BW_VALUES)
+NOC_APP, NOC_ROUNDS = "HS3D", 96
+NOC_ARCHS = ("ata", "victim")
+NOC_MODELS = ("crossbar", "ring")
+NOC_BW = (4.0, 8.0, 16.0, 32.0)
 #: the reference's registered architectures beyond the paper's four
 ZOO_ARCHITECTURES = tuple(a for a in registered_archs()
                           if a not in PAPER_ARCHITECTURES)
@@ -67,6 +92,63 @@ def write_fixture(path: str = FIXTURE,
         "what": "repro.core.simulate() of kernel 0 of every app, paper "
                 "geometry, ideal NoC, default probe backend",
         "rounds": {app: APPS[app].rounds for app in APPS},
+        "results": results,
+    }
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
+def mix_traces():
+    """{"shared": composed trace, "solo": [slot traces]} of the pairing
+    (seed 0, the paper's 30 cores, the mix's own 1536 rounds)."""
+    mix = WorkloadMix(apps=MIX_APPS)
+    return {"shared": mix.compose(30, seed=0),
+            "solo": mix.component_traces(30, seed=0)}
+
+
+def write_mix_fixture(path: str = MIX_FIXTURE) -> None:
+    traces = mix_traces()
+    results = {arch: {
+        "shared": result_dict(simulate(arch, traces["shared"])),
+        "solo": [result_dict(simulate(arch, t)) for t in traces["solo"]]}
+        for arch in MIX_ARCHS}
+    doc = {
+        "what": "repro.core.simulate() of WorkloadMix(apps=('cfd', "
+                "'HS3D')): the composed trace and each slot's solo trace "
+                "(component_traces), seed 0, 30 cores, paper geometry, "
+                "ideal NoC, default probe backend",
+        "apps": list(MIX_APPS),
+        "rounds": int(traces["shared"].addr.shape[0]),
+        "results": results,
+    }
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
+def noc_trace():
+    """HS3D kernel 0 cut to 96 rounds, 30 cores."""
+    return make_trace(dataclasses.replace(APPS[NOC_APP], rounds=NOC_ROUNDS),
+                      kernel=0)
+
+
+def reference_noc_cell(arch: str, noc: str, noc_bw: float) -> dict:
+    geom = dataclasses.replace(PAPER_GEOMETRY, noc_bw=noc_bw)
+    return result_dict(simulate(arch, noc_trace(), geom, noc=noc))
+
+
+def write_noc_fixture(path: str = NOC_FIXTURE) -> None:
+    results = {arch: {noc: {repr(bw): reference_noc_cell(arch, noc, bw)
+                            for bw in NOC_BW}
+                      for noc in NOC_MODELS}
+               for arch in NOC_ARCHS}
+    doc = {
+        "what": "repro.core.simulate() of HS3D kernel 0 at 96 rounds, "
+                "paper geometry with noc_bw replaced, per (arch, noc, "
+                "noc_bw), default probe backend",
+        "app": NOC_APP, "kernel": 0, "rounds": NOC_ROUNDS,
+        "noc_bw": list(NOC_BW),
         "results": results,
     }
     with open(path, "w") as f:
@@ -168,6 +250,90 @@ def test_port_reproduces_zoo_fixture_cell():
     assert_result_close(got, want, "b+tree/victim")
 
 
+def test_mix_fixture_covers_the_six_points():
+    with open(MIX_FIXTURE) as f:
+        doc = json.load(f)
+    assert doc["apps"] == list(MIX_APPS) and doc["rounds"] == 1536
+    assert set(doc["results"]) == set(MIX_ARCHS)
+    for arch, cells in doc["results"].items():
+        shared = cells["shared"]
+        assert [a["cores"] for a in shared["per_app"]] == [15, 15], arch
+        assert len(cells["solo"]) == 2, arch
+        for solo in cells["solo"]:
+            assert len(solo["per_app"]) == 1 and \
+                solo["per_app"][0]["cores"] == 30, arch
+
+
+def test_mix_fixture_matches_reference_simulate():
+    """One point recomputed with JAX: ``ata`` on the composed trace."""
+    with open(MIX_FIXTURE) as f:
+        want = json.load(f)["results"]["ata"]["shared"]
+    assert_result_close(result_dict(simulate("ata", mix_traces()["shared"])),
+                        want, "ata/shared")
+
+
+def test_port_reproduces_mix_fixture_cell():
+    """The port on the CPU, full length: the second slot's solo trace
+    (address-sliced by one ``APP_STRIDE``) under ``private``."""
+    from repro_torch.core import WorkloadMix as PortMix
+    from repro_torch.core import simulate as port_simulate
+    with open(MIX_FIXTURE) as f:
+        want = json.load(f)["results"]["private"]["solo"][1]
+    trace = PortMix(apps=MIX_APPS).component_traces(30, seed=0)[1]
+    got = result_dict(port_simulate("private", trace, device="cpu"))
+    assert_result_close(got, want, "private/solo[1]")
+
+
+def test_noc_fixture_covers_the_sixteen_points():
+    from repro.core.report import NOC_BW_VALUES
+    with open(NOC_FIXTURE) as f:
+        doc = json.load(f)
+    assert (doc["app"], doc["kernel"], doc["rounds"]) == (NOC_APP, 0, 96)
+    assert tuple(doc["noc_bw"]) == NOC_BW == NOC_BW_VALUES
+    assert set(doc["results"]) == set(NOC_ARCHS)
+    for arch, by_noc in doc["results"].items():
+        assert set(by_noc) == set(NOC_MODELS), arch
+        for noc, cells in by_noc.items():
+            assert set(cells) == {repr(bw) for bw in NOC_BW}, (arch, noc)
+            for cell in cells.values():
+                # the interconnect carried traffic and conserved it
+                n = cell["noc"]
+                assert n["flits_injected"] > 0, (arch, noc)
+                assert n["flits_injected"] == n["flits_delivered"] + \
+                    n["flits_queued"], (arch, noc)
+
+
+def test_noc_fixture_matches_reference_simulate():
+    """One point recomputed with JAX: ``victim`` on the ring at the
+    narrowest network."""
+    with open(NOC_FIXTURE) as f:
+        want = json.load(f)["results"]["victim"]["ring"]["4.0"]
+    assert_result_close(reference_noc_cell("victim", "ring", 4.0), want,
+                        "victim/ring/4.0")
+
+
+def test_port_stacked_noc_pass_reproduces_noc_fixture():
+    """The port on the CPU: all sixteen points in the one stacked pass a
+    ``SweepGrid`` makes of them (ata and victim, crossbar and ring, four
+    bandwidths), each against its stored reference cell."""
+    from repro_torch.core import APPS as PORT_APPS
+    from repro_torch.core import PAPER_GEOMETRY as PORT_GEOMETRY
+    from repro_torch.core import SweepGrid
+    from repro_torch.core import make_trace as port_make_trace
+    with open(NOC_FIXTURE) as f:
+        want = json.load(f)["results"]
+    trace = port_make_trace(dataclasses.replace(PORT_APPS[NOC_APP],
+                                                rounds=NOC_ROUNDS), kernel=0)
+    geoms = [dataclasses.replace(PORT_GEOMETRY, noc_bw=bw) for bw in NOC_BW]
+    grid = SweepGrid(NOC_ARCHS, geoms, [trace], nocs=NOC_MODELS)
+    run = grid.run(device="cpu")
+    assert run.report.n_executables == 1
+    for p, r in zip(grid.points, run.results):
+        assert_result_close(result_dict(r),
+                            want[p.arch][p.noc][repr(p.geom.noc_bw)],
+                            f"{p.arch}/{p.noc}/{p.geom.noc_bw}")
+
+
 if __name__ == "__main__":
     import sys
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
@@ -177,3 +343,9 @@ if __name__ == "__main__":
     if which in ("zoo", "all"):
         write_fixture(ZOO_FIXTURE, ZOO_ARCHITECTURES)
         print(f"wrote {os.path.normpath(ZOO_FIXTURE)}")
+    if which in ("mix", "all"):
+        write_mix_fixture()
+        print(f"wrote {os.path.normpath(MIX_FIXTURE)}")
+    if which in ("noc", "all"):
+        write_noc_fixture()
+        print(f"wrote {os.path.normpath(NOC_FIXTURE)}")
