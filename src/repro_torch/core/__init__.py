@@ -23,7 +23,11 @@ Public API:
   MixResult, MixRun, run_mixes — fairness metrics over co-scheduled mixes
   figures, report (modules)   — Figs. 8–10, Table I, the zoo table and
       the mix fairness rows; the sensitivity report and its gate
+  TelemetryConfig             — opt-in windowed telemetry (``telemetry=``
+      of simulate / SweepGrid.run / serve_stream; repro_torch.obs
+      holds the timelines, traces and manifests)
 """
+from repro_torch.core.telemetry import TelemetryConfig
 from repro_torch.core.geometry import (GeomScalars, GeomStructure,
                                        GpuGeometry, PAPER_GEOMETRY,
                                        split_geometry)
@@ -58,5 +62,5 @@ __all__ = [
     "HIGH_LOCALITY", "LOW_LOCALITY", "AppParams", "WorkloadMix",
     "kernel_params", "make_trace", "AppResult", "app_traces", "geomean",
     "normalized_ipc", "run_app", "run_suite", "MixResult", "MixRun",
-    "run_mixes",
+    "run_mixes", "TelemetryConfig",
 ]

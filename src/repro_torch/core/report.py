@@ -1,9 +1,10 @@
 """Sensitivity reports over :class:`~repro_torch.core.sweep.SweepGrid` runs.
 
 The port of the reference's ``repro.core.report`` sensitivity report:
-the same sections, cells, schema and gate, so the committed baselines
-(``benchmarks/baselines/sensitivity_rounds96.json``) gate the port's
-reports. The reference's ``manifest`` block and its other report kinds
+the same sections, cells, schema, ``manifest`` block
+(``repro_torch.obs.manifest.run_manifest``) and gate, so the committed
+baselines (``benchmarks/baselines/sensitivity_rounds96.json``) gate the
+port's reports. The reference's other report kinds
 (``compare_simspeed``, ``compare_serving``) are not part of it.
 
 :func:`run_sensitivity` sweeps the contention-policy zoo over widened
@@ -324,6 +325,11 @@ def run_sensitivity(app: str = "HS3D",
             app, archs, noc_models, kernels_per_app=kernels_per_app,
             rounds=rounds, geom=geom, n_devices=n_devices,
             probe_backend=probe_backend, device=device)
+    # provenance block; compare_reports gates only the baseline's own
+    # sections, so adding it never breaks committed baselines
+    from repro_torch.obs.manifest import run_manifest
+    report["manifest"] = run_manifest(
+        phases={"sweep": run.report.wall_s})
     return report
 
 

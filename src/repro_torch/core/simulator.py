@@ -21,6 +21,14 @@ the reference's float64 host casts. Under all three runs
 (members of one ``stack_key`` family), NoC model and geometry timing:
 the pass ``repro_torch.core.sweep.SweepGrid`` runs per bucket.
 
+``telemetry=`` (a :class:`~repro_torch.core.telemetry.TelemetryConfig`)
+keeps the time axis: at the end of every ``window``-th round the loop
+copies the carried counters into preallocated device buffers (no host
+read), and a round adds its loads to a log-2 latency histogram; the
+buffers move to the host once, with the counters, and become one
+:class:`~repro_torch.obs.SimTimeline` per point. The rounds' other ops
+are those of a run without telemetry, so the results are bit-equal.
+
 Entry points run on ``device=None`` = ``"cuda"`` and raise where there
 is no card, unless the caller passes ``device="cpu"``.
 """
@@ -41,6 +49,8 @@ from repro_torch.core.geometry import (GEOM_SCALAR_FIELDS, DeviceGeometry,
 from repro_torch.core.noc import (NocModel, NocTraffic, NocTransit, get_noc,
                                   init_noc_state, registered_nocs)
 from repro_torch.core.probe import resolve_probe_backend
+from repro_torch.core.telemetry import (TelemetryConfig, log2_bucket,
+                                        log2_edges_tensor)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -354,7 +364,8 @@ def _transit(runs, geom, noc, traffic: NocTraffic) -> NocTransit:
 
 
 def _round(runs: _Runs, geom, insn_per_req, core_app, state, addr,
-           is_write, t, routing: _Routing, *, probe_backend: str):
+           is_write, t, routing: _Routing, *, probe_backend: str,
+           hist_edges: Optional[torch.Tensor] = None):
     """One simulation round for all P points; returns the new state and
     the round's (P, C) per-core served-load latencies.
 
@@ -363,7 +374,9 @@ def _round(runs: _Runs, geom, insn_per_req, core_app, state, addr,
     the P points. state = (l1, l2, noc, stats); addr/is_write are the
     round's (P, C, m) requests; ``t`` the round counter (int32 zero-dim
     tensor); ``insn_per_req`` is (P, 1) or (P, C) float32; ``core_app``
-    the (P, C) app-id channel of the per-app attribution.
+    the (P, C) app-id channel of the per-app attribution. ``hist_edges``
+    (telemetry with histograms: the log-2 bucket thresholds) adds the
+    round's served loads to the carried ``lat_hist``, in place.
     """
     l1, l2, noc, stats = state
     P, C, m = addr.shape
@@ -456,11 +469,17 @@ def _round(runs: _Runs, geom, insn_per_req, core_app, state, addr,
         "app_lat_n": stats["app_lat_n"].scatter_add(
             -1, core_app, all_served.to(f32)),
     }
+    if hist_edges is not None:
+        # log2-bucketed L1-complete latency histogram over served loads
+        # (unserved cores add 0); integer counts, exact in any order
+        bucket = log2_bucket(l1_complete, hist_edges.numel() + 1, hist_edges)
+        stats["lat_hist"] = state[3]["lat_hist"].scatter_add_(
+            -1, bucket, all_served.to(torch.int32))
     return (l1, l2, noc, stats), app_served_lat
 
 
 def _fold_app_lat(served_lat: np.ndarray, core_app: np.ndarray,
-                  n_apps: int) -> np.ndarray:
+                  n_apps: int, window: Optional[int] = None) -> np.ndarray:
     """Per-app sum of the served loads' L1 latencies, (P, n_apps) float32.
 
     ``served_lat`` is (T, P, C), one row of per-core values per round. The
@@ -469,18 +488,27 @@ def _fold_app_lat(served_lat: np.ndarray, core_app: np.ndarray,
     the reference's sequential scatter-add, whose float32 rounding this
     reproduces once the sum outgrows 2**20 (an atomic scatter on the card
     adds in no fixed order). Other apps' cores add an exact 0.
+
+    With ``window``, the (T / window, P, n_apps) running sums at every
+    window's end instead: the reference's carry after ``(w + 1) *
+    window`` rounds, the accumulation at ``(w + 1) * window * C - 1``
+    (summing each window apart and adding them up would round otherwise
+    past 2**20). The last row is the total.
     """
     T, P, C = served_lat.shape
     seq = served_lat.transpose(1, 0, 2).reshape(P, T * C)
-    acc = np.zeros((P, n_apps), np.float32)
+    ends = np.arange((window or T) * C - 1, T * C, (window or T) * C)
+    acc = np.zeros((ends.size, P, n_apps), np.float32)
     for a in range(n_apps):
         mine = np.tile(core_app == a, (1, T))                   # (P, T*C)
-        acc[:, a] = np.add.accumulate(np.where(mine, seq, np.float32(0)),
-                                      axis=1, dtype=np.float32)[:, -1]
-    return acc
+        acc[:, :, a] = np.add.accumulate(
+            np.where(mine, seq, np.float32(0)), axis=1,
+            dtype=np.float32)[:, ends].T
+    return acc if window else acc[-1]
 
 
-def _init_stats(geom, P: int, n_apps: int, device) -> Dict[str, torch.Tensor]:
+def _init_stats(geom, P: int, n_apps: int, device,
+                hist_bins: Optional[int] = None) -> Dict[str, torch.Tensor]:
     f32 = dict(dtype=torch.float32, device=device)
     stats = {k: torch.zeros((P,), **f32)
              for k in ("l1_lat_sum", "l1_lat_n", "local_hits", "remote_hits",
@@ -488,7 +516,18 @@ def _init_stats(geom, P: int, n_apps: int, device) -> Dict[str, torch.Tensor]:
     stats["cycles"] = torch.zeros((P, geom.n_cores), **f32)
     for k in ("app_local", "app_remote", "app_lat_n"):
         stats[k] = torch.zeros((P, n_apps), **f32)
+    if hist_bins is not None:
+        stats["lat_hist"] = torch.zeros((P, hist_bins), dtype=torch.int32,
+                                        device=device)
     return stats
+
+
+def _snapshot(snaps: dict, w: int, state) -> None:
+    """Copy the carried stats and NoC state into window ``w`` of the
+    preallocated (n_windows, P, ...) buffers (device copies, no read)."""
+    for part, carried in (("stats", state[3]), ("noc", state[2])):
+        for k, buf in snaps[part].items():
+            buf[w].copy_(carried[k])
 
 
 def _summarize(stats, trace: Trace) -> SimResult:
@@ -608,7 +647,8 @@ def _member_runs(members: Sequence, names: Sequence[str]) -> tuple:
 
 def _simulate_points(archs: Sequence[str], nocs: Sequence[str],
                      traces: Sequence[Trace], geoms: Sequence[GpuGeometry],
-                     *, probe_backend: str, device) -> List[SimResult]:
+                     *, probe_backend: str, device,
+                     telemetry: Optional[TelemetryConfig] = None):
     """One batched pass over P points of one kind and one geometry
     structure, each with its own architecture, NoC model, geometry
     timing and trace; results in input order.
@@ -621,6 +661,11 @@ def _simulate_points(archs: Sequence[str], nocs: Sequence[str],
     :func:`_transit`). A pass whose points share one architecture and
     one NoC model launches exactly what a plain batch does. Each point's
     result equals its own :func:`simulate` bit for bit.
+
+    With ``telemetry`` it returns ``(results, timelines)``, one
+    :class:`~repro_torch.obs.SimTimeline` per point in input order, each
+    the one the point's own :func:`simulate` keeps (its link lanes cut
+    to its own NoC model's).
     """
     arch_rank = {a: i for i, a in enumerate(registered_archs())}
     noc_rank = {n: i for i, n in enumerate(registered_nocs())}
@@ -650,23 +695,59 @@ def _simulate_points(archs: Sequence[str], nocs: Sequence[str],
     ts = torch.arange(T, dtype=torch.int32, device=device)
     routing = _routing(g, P, C, m, device)
 
+    hist_bins = (telemetry.sim_hist_bins
+                 if telemetry is not None and telemetry.histograms else None)
     state = (_l1_state(g, policies, P, device), _l2_state(g, P, device),
              _noc_state(g, models, P, device),
-             _init_stats(g, P, n_apps, device))
+             _init_stats(g, P, n_apps, device, hist_bins))
+    hist_edges = (log2_edges_tensor(hist_bins, device)
+                  if hist_bins is not None else None)
+    W = telemetry.window_for(T) if telemetry is not None else 0
+    snaps = None if telemetry is None else {
+        part: {k: torch.empty((T // W,) + v.shape, dtype=v.dtype,
+                              device=device) for k, v in carried.items()}
+        for part, carried in (("stats", state[3]), ("noc", state[2]))}
     served_lat = torch.empty((T, P, C), dtype=torch.float32, device=device)
     for i in range(T):
         state, served_lat[i] = _round(runs, g, insn, core_app, state,
                                       addr[i], is_write[i], ts[i], routing,
-                                      probe_backend=probe_backend)
+                                      probe_backend=probe_backend,
+                                      hist_edges=hist_edges)
+        if snaps is not None and (i + 1) % W == 0:
+            _snapshot(snaps, i // W, state)
     stats = {k: v.cpu().numpy() for k, v in state[3].items()}
-    stats["app_lat_sum"] = _fold_app_lat(served_lat.cpu().numpy(),
-                                         core_app_np, n_apps)
+    served_lat = served_lat.cpu().numpy()
+    stats["app_lat_sum"] = _fold_app_lat(served_lat, core_app_np, n_apps)
     noc_state = {k: v.cpu().numpy() for k, v in state[2].items()}
     out: List[Optional[SimResult]] = [None] * P
     for b, (i, tr) in enumerate(zip(order, traces)):
         out[i] = _summarize({**{k: v[b] for k, v in stats.items()},
                              "noc": {k: v[b] for k, v in noc_state.items()}},
                             tr)
+    if telemetry is None:
+        return out
+    snaps = {part: {k: v.cpu().numpy() for k, v in bufs.items()}
+             for part, bufs in snaps.items()}
+    snaps["stats"]["app_lat_sum"] = _fold_app_lat(served_lat, core_app_np,
+                                                  n_apps, W)
+    return out, _timelines(snaps, order, archs, nocs, traces, g, telemetry)
+
+
+def _timelines(snaps, order, archs, nocs, traces, geom, telemetry):
+    """One :class:`SimTimeline` per point, in input order, from a pass's
+    (n_windows, P, ...) host snapshots (points in pass order)."""
+    from repro_torch.obs.timeline import SimTimeline  # obs sits above core
+    out = [None] * len(order)
+    for b, i in enumerate(order):
+        lanes = get_noc(nocs[b]).n_links(geom)
+        point = {"stats": {k: v[:, b] for k, v in snaps["stats"].items()},
+                 "noc": {k: v[:, b] if v.ndim == 2 else v[:, b, :lanes]
+                         for k, v in snaps["noc"].items()}}
+        out[i] = SimTimeline.from_snapshots(
+            point, telemetry, rounds=traces[b].addr.shape[0],
+            meta={"arch": archs[b], "noc": nocs[b],
+                  "n_apps": traces[b].n_apps,
+                  "n_cores": traces[b].n_cores})
     return out
 
 
@@ -712,15 +793,48 @@ def round_signature(group: Tuple[str, ...], arch: str,
 
 def simulate(arch: str, trace: Trace, geom: GpuGeometry = PAPER_GEOMETRY,
              *, noc: str = "ideal", probe_backend: Optional[str] = None,
-             device=None) -> SimResult:
+             telemetry: Optional[TelemetryConfig] = None, device=None):
     """Run a trace through one architecture and summarize.
 
     ``probe_backend`` selects the ATA probe lowering
     (``repro_torch.core.probe``; default: the kernel on CUDA, plain
     torch on the CPU); every backend gives bit-identical results.
+
+    ``telemetry`` (a :class:`~repro_torch.core.telemetry.TelemetryConfig`)
+    turns on windowed observability: the return becomes a
+    ``(SimResult, repro_torch.obs.SimTimeline)`` pair, with the
+    :class:`SimResult` bit-equal to the ``telemetry=None`` run.
     """
-    return simulate_batch(arch, [trace], geom, noc=noc,
-                          probe_backend=probe_backend, device=device)[0]
+    if telemetry is None:
+        return simulate_batch(arch, [trace], geom, noc=noc,
+                              probe_backend=probe_backend, device=device)[0]
+    telemetry.window_for(trace.addr.shape[0])
+    device, probe_backend = _checked(arch, noc, [trace], geom, probe_backend,
+                                     device)
+    (result,), (timeline,) = _simulate_points(
+        [arch], [noc], [trace], [geom], probe_backend=probe_backend,
+        device=device, telemetry=telemetry)
+    return result, timeline
+
+
+def _checked(arch: str, noc: str, traces: Sequence[Trace],
+             geom: GpuGeometry, probe_backend: Optional[str], device):
+    """Validate a same-geometry run; returns its device and probe
+    backend."""
+    _check_arch(arch)
+    _check_noc(noc)
+    device = resolve_device(device)
+    probe_backend = resolve_probe_backend(probe_backend, device)
+    kinds = {trace_kind(t) for t in traces}
+    if len(kinds) > 1:
+        raise ValueError(
+            f"simulate_batch needs same-shape, same-kind traces "
+            f"((T, C, m), insn shape, n_apps), got {sorted(kinds)}; use "
+            "simulate_many for mixed kinds")
+    if traces and traces[0].n_cores != geom.n_cores:
+        raise ValueError(f"traces have {traces[0].n_cores} cores, geometry "
+                         f"{geom.n_cores}")
+    return device, probe_backend
 
 
 def simulate_batch(arch: str, traces: Sequence[Trace],
@@ -734,21 +848,10 @@ def simulate_batch(arch: str, traces: Sequence[Trace],
     bit for bit (points never read each other's state).
     :func:`simulate_many` takes traces of mixed kinds.
     """
-    _check_arch(arch)
-    _check_noc(noc)
-    device = resolve_device(device)
-    probe_backend = resolve_probe_backend(probe_backend, device)
+    device, probe_backend = _checked(arch, noc, traces, geom, probe_backend,
+                                     device)
     if not traces:
         return []
-    kinds = {trace_kind(t) for t in traces}
-    if len(kinds) != 1:
-        raise ValueError(
-            f"simulate_batch needs same-shape, same-kind traces "
-            f"((T, C, m), insn shape, n_apps), got {sorted(kinds)}; use "
-            "simulate_many for mixed kinds")
-    if traces[0].n_cores != geom.n_cores:
-        raise ValueError(f"traces have {traces[0].n_cores} cores, geometry "
-                         f"{geom.n_cores}")
     P = len(traces)
     return _simulate_points([arch] * P, [noc] * P, traces, [geom] * P,
                             probe_backend=probe_backend, device=device)

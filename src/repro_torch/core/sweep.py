@@ -38,6 +38,10 @@ device count. :class:`SweepReport` keeps the reference's names:
 baselines gate them. Results are bit-identical to per-point
 :func:`repro_torch.core.simulate`.
 
+``SweepGrid.run(telemetry=...)`` keeps one windowed
+:class:`~repro_torch.obs.SimTimeline` per point, each equal to the one
+the point's own ``simulate(telemetry=...)`` keeps.
+
 Every bucket runs on the one device given to :meth:`SweepGrid.run`;
 ``n_devices`` is accepted for the reference's signature and the report
 says 1.
@@ -55,6 +59,7 @@ from repro_torch.core.geometry import (GpuGeometry, PAPER_GEOMETRY,
                                        geom_structure)
 from repro_torch.core.noc import get_noc, registered_nocs
 from repro_torch.core.probe import PROBE_BACKENDS, resolve_probe_backend
+from repro_torch.core.telemetry import TelemetryConfig
 from repro_torch.core.simulator import (SimResult, Trace, _check_arch,
                                         _check_noc, _simulate_points,
                                         resolve_device, round_signature,
@@ -88,6 +93,9 @@ class SweepReport:
 class SweepRun(NamedTuple):
     results: List[SimResult]     # aligned with SweepGrid.points
     report: SweepReport
+    #: per-point ``repro_torch.obs.SimTimeline`` (aligned with
+    #: ``SweepGrid.points``) when run with ``telemetry``, else None
+    timelines: Optional[list] = None
 
 
 #: Process-wide set of bucket keys already run. Eager PyTorch compiles
@@ -261,12 +269,22 @@ class SweepGrid:
                             f"one pass; give {noc!r} its own stack_key")
 
     def run(self, n_devices: Optional[int] = None, *,
+            telemetry: Optional[TelemetryConfig] = None,
             device=None) -> SweepRun:
         """Sweep every grid point, one batched pass per bucket, on
         ``device`` (default ``"cuda"``). ``n_devices`` is accepted for
-        the reference's signature; every pass runs on the one device."""
+        the reference's signature; every pass runs on the one device.
+
+        ``telemetry`` threads windowed observability through every
+        pass: the returned :class:`SweepRun` gains ``timelines``, one
+        ``repro_torch.obs.SimTimeline`` per point (aligned with
+        :attr:`points`), and the results stay bit-equal to a run
+        without it."""
         del n_devices
         t0 = time.perf_counter()
+        if telemetry is not None:
+            for p in self.points:
+                telemetry.window_for(p.trace.addr.shape[0])
         device = resolve_device(device)
         group_of = self._arch_group_of()
         noc_group_of = self._noc_group_of()
@@ -278,6 +296,7 @@ class SweepGrid:
             buckets.setdefault(key, []).append(i)
 
         results: List[Optional[SimResult]] = [None] * len(self.points)
+        timelines = None if telemetry is None else [None] * len(self.points)
         used, new_compiles = set(), 0
         for key, idxs in buckets.items():
             exec_key = key + (device.type,)
@@ -289,14 +308,20 @@ class SweepGrid:
             out = _simulate_points(
                 [p.arch for p in pts], [p.noc for p in pts],
                 [p.trace for p in pts], [p.geom for p in pts],
-                probe_backend=key[4], device=device)
+                probe_backend=key[4], device=device, telemetry=telemetry)
+            if telemetry is not None:
+                out, tls = out
+                for i, tl in zip(idxs, tls):
+                    tl.meta["probe_backend"] = self.points[i].probe_backend
+                    timelines[i] = tl
             for i, r in zip(idxs, out):
                 results[i] = r
         report = SweepReport(n_points=len(self.points),
                              n_executables=len(used),
                              n_compiles=new_compiles, n_devices=1,
                              wall_s=time.perf_counter() - t0)
-        return SweepRun(results=results, report=report)  # type: ignore
+        return SweepRun(results=results, report=report,  # type: ignore
+                        timelines=timelines)
 
 
 __all__ = ["SweepGrid", "SweepPoint", "SweepReport", "SweepRun",

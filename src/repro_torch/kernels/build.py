@@ -14,7 +14,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD = Path(__file__).parent / "_build"
@@ -33,13 +33,27 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+#: {name: library} of the sources this process compiled (the run
+#: manifest's ``kernel_builds`` reads it).
+BUILT: Dict[str, Path] = {}
+
+
+def source_digest(name: str) -> str:
+    """The hash of ``csrc/<name>.cu`` that its library is keyed on."""
+    return hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    """Where the library of the current ``csrc/<name>.cu`` is built."""
+    return BUILD / f"lib{name}-{source_digest(name)}.so"
+
+
 def build(name: str) -> Tuple[Path, str]:
     """Compile ``csrc/<name>.cu`` unless built already; returns the
     library's path and the compiler's log (ptxas register/spill report;
     empty when the library was already built)."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    lib = BUILD / f"lib{name}-{digest}.so"
+    lib = library_path(name)
     if lib.exists():
         return lib, ""
     BUILD.mkdir(exist_ok=True)
@@ -49,6 +63,7 @@ def build(name: str) -> Tuple[Path, str]:
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")
     os.replace(tmp, lib)
+    BUILT[name] = lib
     return lib, res.stdout + res.stderr
 
 

@@ -4,9 +4,11 @@ of ``benchmarks/run.py --report-json`` and the sensitivity kind of
 
 Runs the fairness grid once (``report.mix_grid_run``), prints its rows
 (``figures.mix_fairness``), builds the schema-3 report (solo, mix and
-NoC sections) on the same grid run, writes it as JSON with its markdown
-table beside it, and, with ``--check``, exits non-zero on any
-``compare_reports`` failure against the baseline.
+NoC sections) on the same grid run, with its run ``manifest`` (the
+card, its power limit, the kernel builds and the phases' wall times),
+writes it as JSON with its markdown table beside it, and, with
+``--check``, exits non-zero on any ``compare_reports`` failure against
+the baseline.
 
 Usage (on the CUDA card; ``--device cpu`` runs without one):
   PYTHONPATH=src python -m repro_torch.launch.sensitivity --rounds 96 \\
@@ -50,10 +52,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         kernels_per_app=1, rounds=args.rounds,
         mix_pairings=report.MIX_PAIRINGS, mix_run=mix_run,
         noc_models=PAPER_NOCS, device=device)
+    man = rep["manifest"]
+    man["phases_wall_s"].update(mix_grid=round(mix_s, 6), report=round(
+        time.perf_counter() - t0, 6))
     md_path = report.write_report(args.report_json, rep)
     print(f"sensitivity report: {args.report_json} + {md_path} "
           f"(mix grid {mix_s:.2f} s, solo and NoC sections "
           f"{time.perf_counter() - t0:.2f} s, device {device})")
+    print(f"manifest: {man['device_name']} ({man['power_limit']}), torch "
+          f"{man['torch_version']}, git {man['git_sha']}")
     for section, sec in (("solo", rep), ("mix", rep["mix"]),
                          ("noc", rep["noc"])):
         sw = sec["sweep"]

@@ -65,6 +65,13 @@ tensor op is one or a few kernel launches issued by the host):
 Policies: ``private`` (local-only), ``broadcast`` (probe all shards on
 local miss — the oracle's ``remote``), ``ata`` (replicated directory,
 zero probe messages).
+
+``telemetry=`` (a :class:`~repro_torch.core.telemetry.TelemetryConfig`)
+adds a windowed :class:`~repro_torch.obs.ServeTimeline` and the
+value-resolved latency histogram, both built on the host from the grids
+the replay already streams back; on the device it adds one reduction
+per chunk (the probe messages of each admission round) under
+``broadcast`` and nothing to a sub-round.
 """
 from __future__ import annotations
 
@@ -78,6 +85,8 @@ from repro_torch.core.geometry import GpuGeometry
 from repro_torch.core.noc import NocTraffic, get_noc, init_noc_state
 from repro_torch.core.probe import PROBE_BACKENDS, resolve_probe_backend
 from repro_torch.core.simulator import resolve_device
+from repro_torch.core.telemetry import (TelemetryConfig, hist_quantile,
+                                        serving_hist_bins)
 from repro_torch.kernels.ata_tag_probe import ata_tag_probe
 
 SERVING_POLICIES = ("private", "broadcast", "ata")
@@ -155,11 +164,11 @@ class ServeResult(NamedTuple):
     noc_injected: float
     noc_delivered: float
     noc_queued: float
-    #: the reference's telemetry latency histogram; the port has no
-    #: telemetry yet, so it stays ``None`` and percentiles come from
-    #: ``np.percentile`` (equal to the histogram read under the default
-    #: integral cost model and the ideal NoC)
+    #: value-resolved modeled-latency bincount (telemetry runs only)
     lat_hist: Optional[np.ndarray] = None
+    #: histogram quantiles reproduce np.percentile exactly (integral
+    #: cost model + ideal NoC)
+    hist_exact: bool = False
 
     @property
     def hit_rate(self) -> float:
@@ -171,6 +180,11 @@ class ServeResult(NamedTuple):
         return self.latency[self.served]
 
     def latency_percentile(self, q: float) -> float:
+        if self.lat_hist is not None and self.hist_exact:
+            # exact quantile read from the histogram — bit-identical
+            # to np.percentile over the materialized latency array
+            return hist_quantile(self.lat_hist, q) \
+                if self.lat_hist.sum() else 0.0
         lat = self.request_latencies
         return float(np.percentile(lat, q)) if lat.size else 0.0
 
@@ -221,6 +235,16 @@ def _max_latency(cfg: ServingConfig, K: int) -> float:
         + cfg.lat_probe_rtt
 
 
+def _integral_cost_model(cfg: ServingConfig) -> bool:
+    """True when every latency term is a whole number of cycles and
+    the NoC adds none — the regime where the value-resolved histogram
+    reconstructs ``np.percentile`` exactly."""
+    return cfg.noc == "ideal" and all(
+        float(v).is_integer() for v in (cfg.lat_hit, cfg.lat_fetch,
+                                        cfg.lat_recompute,
+                                        cfg.lat_probe_rtt))
+
+
 def _check_headroom(policy: str, cfg: ServingConfig, T: int, C: int,
                     K: int) -> None:
     """Config-time overflow guards for the device-side narrow types.
@@ -268,9 +292,11 @@ class _Engine:
     """One replay's device state and the per-chunk program."""
 
     def __init__(self, policy: str, cfg: ServingConfig, B: int, C: int,
-                 K: int, device, backend: str):
+                 K: int, device, backend: str, per_round: bool = False):
         self.policy, self.cfg, self.B, self.C, self.K = policy, cfg, B, C, K
         self.backend = backend
+        #: also emit the probe messages of each admission round
+        self.per_round = per_round
         self.S, self.W = S, W = cfg.n_sets, cfg.n_ways
         self.CS = C * S                      # the scratch row's index
         i32 = dict(dtype=torch.int32, device=device)
@@ -369,7 +395,9 @@ class _Engine:
 
     def _emit(self, vr, bvT, reu, lh, am) -> dict:
         """Counters, latencies, shard load and the NoC rounds of a chunk,
-        derived from the walk's ``reused`` lanes."""
+        derived from the walk's ``reused`` lanes. With ``per_round``,
+        ``miss_rounds`` adds the locally-missing blocks of each admission
+        round (``broadcast`` only: the others send no probes)."""
         C, K, B, cfg = self.C, self.K, self.B, self.cfg
         n = reu.shape[0]
         f32 = torch.float32
@@ -411,12 +439,16 @@ class _Engine:
         # per-chunk shard-load reduction: one count over reused blocks
         shard_load = torch.bincount(torch.where(reu, owner, C).view(-1),
                                     minlength=C + 1)[:C]
-        return dict(lat=lat, nl=nl, nr=nr, nc=nc, miss_blocks=miss_blocks,
-                    shard_load=shard_load)
+        out = dict(lat=lat, nl=nl, nr=nr, nc=nc, miss_blocks=miss_blocks,
+                   shard_load=shard_load)
+        if self.per_round and self.policy == "broadcast":
+            out["miss_rounds"] = miss.reshape(n // B, -1).sum(dim=1)
+        return out
 
 
 def serve_stream(policy: str, stream, cfg: ServingConfig = ServingConfig(),
-                 *, device=None) -> ServeResult:
+                 *, telemetry: Optional[TelemetryConfig] = None,
+                 device=None):
     """Replay ``stream`` under ``policy``; returns a :class:`ServeResult`.
 
     ``stream`` is a :class:`~repro_torch.core.trace.serving.RequestStream`
@@ -425,6 +457,13 @@ def serve_stream(policy: str, stream, cfg: ServingConfig = ServingConfig(),
     exact for every ``B``. Runs on ``device=None`` = ``"cuda"`` and
     raises where there is no card, unless the caller passes
     ``device="cpu"``.
+
+    ``telemetry`` (a :class:`~repro_torch.core.telemetry.TelemetryConfig`)
+    turns on windowed observability: the return becomes a
+    ``(ServeResult, repro_torch.obs.ServeTimeline)`` pair, the result
+    gains its latency histogram (``lat_hist``; the percentile properties
+    read it exactly under the default integral cost model), and every
+    counter stays bit-equal to the ``telemetry=None`` replay.
     """
     if policy not in SERVING_POLICIES:
         raise ValueError(f"policy must be one of {SERVING_POLICIES}, "
@@ -441,9 +480,10 @@ def serve_stream(policy: str, stream, cfg: ServingConfig = ServingConfig(),
 
     valid, hashes, blocks = (dev(stream.valid), dev(stream.hashes),
                              dev(stream.n_blocks))
-    eng = _Engine(policy, cfg, B, C, K, device, backend)
+    eng = _Engine(policy, cfg, B, C, K, device, backend,
+                  per_round=telemetry is not None)
     step = (_CHUNK_SUBROUNDS // B) * B
-    lat_parts, nl_parts, nr_parts, nc_parts = [], [], [], []
+    lat_parts, nl_parts, nr_parts, nc_parts, miss_parts = [], [], [], [], []
     miss_blocks = 0
     shard_load = np.zeros(C, np.int64)
     for g0 in range(0, T, step):
@@ -454,6 +494,8 @@ def serve_stream(policy: str, stream, cfg: ServingConfig = ServingConfig(),
         nr_parts.append(outs["nr"].cpu().numpy())
         nc_parts.append(outs["nc"].cpu().numpy())
         miss_blocks += int(outs["miss_blocks"])
+        if "miss_rounds" in outs:
+            miss_parts.append(outs["miss_rounds"].cpu().numpy())
         shard_load += outs["shard_load"].cpu().numpy().astype(np.int64)
 
     # host-side wide reduction of the emitted per-sub-round grids
@@ -478,7 +520,15 @@ def serve_stream(policy: str, stream, cfg: ServingConfig = ServingConfig(),
     ones = np.ones_like(served, np.int64)
     nstate = {k: v[0].item() if v.dim() == 1 else v[0].cpu().numpy()
               for k, v in eng.noc_state.items()}
-    return ServeResult(
+    with_hist = telemetry is not None and telemetry.histograms
+    lat_hist = None
+    if with_hist:
+        # the reference's device bincount, on the host from the grid
+        nb = serving_hist_bins(_max_latency(cfg, K))
+        lat_hist = np.bincount(
+            np.clip(lat, 0, nb - 1).astype(np.int32)[served],
+            minlength=nb).astype(np.int64)
+    result = ServeResult(
         policy=policy,
         n_requests=stream.n_requests,
         local_hits=local_hits,
@@ -502,4 +552,20 @@ def serve_stream(policy: str, stream, cfg: ServingConfig = ServingConfig(),
         noc_injected=float(nstate["injected"]),
         noc_delivered=float(nstate["delivered"]),
         noc_queued=float(nstate["queue"].sum()),
+        lat_hist=lat_hist,
+        hist_exact=with_hist and _integral_cost_model(cfg),
     )
+    if telemetry is None:
+        return result
+    from repro_torch.obs.timeline import ServeTimeline  # obs sits above
+    pm_rounds = (np.concatenate(miss_parts).astype(np.int64) * (C - 1)
+                 if miss_parts else np.zeros(T // B, np.int64))
+    timeline = ServeTimeline.from_grids(
+        window=telemetry.window, slots=B, served=served,
+        nl=nl, nr=nr, nc=nc, lat=lat, pm_rounds=pm_rounds,
+        cycles_rounds=np.max(lat.reshape(-1, B * C), axis=1),
+        tenant=np.asarray(stream.tenant), n_tenants=nt,
+        hist=lat_hist, hist_exact=result.hist_exact,
+        meta={"policy": policy, "slots": B, "shards": C,
+              "noc": cfg.noc, "tenants": "+".join(stream.tenants)})
+    return result, timeline

@@ -17,13 +17,19 @@ holds the non-ideal interconnects: HS3D kernel 0 at 96 rounds under
 ``ata`` and ``victim`` x ``crossbar`` and ``ring`` x the sensitivity
 report's ``noc_bw`` values, each through per-point ``simulate()`` (the
 ``sweep`` phase holds those points of the report's NoC section against
-it).
+it). A fifth, ``src/repro_torch/data/reference_telemetry.json``, holds
+windowed telemetry: the reference ``SimTimeline``'s cumulative arrays
+(window 32) and the ``SimResult`` of the telemetry capture's point
+(``cfd`` kernel 0, ``ata``, ``crossbar``, 96 rounds) and of ``cfd``
+kernel 0 under ``ata`` and ``victim`` at 1536 rounds, each through
+per-point ``simulate(telemetry=...)`` (``chip_smoke.py``'s ``telemetry``
+phase holds the port's timelines against it).
 
 Regenerate them with::
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_reference_fixture.py [paper|zoo|mix|noc]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_reference_fixture.py [paper|zoo|mix|noc|telemetry]
 
-(all four when no argument is given). The tests recompute cells of
+(all five when no argument is given). The tests recompute cells of
 each file with JAX and check the files.
 """
 import dataclasses
@@ -31,6 +37,7 @@ import json
 import math
 import os
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -67,6 +74,16 @@ NOC_APP, NOC_ROUNDS = "HS3D", 96
 NOC_ARCHS = ("ata", "victim")
 NOC_MODELS = ("crossbar", "ring")
 NOC_BW = (4.0, 8.0, 16.0, 32.0)
+TELEMETRY_FIXTURE = os.path.join(DATA, "reference_telemetry.json")
+#: the telemetry file's points: name -> (arch, noc, rounds), cfd kernel 0
+#: (the first is benchmarks/telemetry_capture.py's simulator point; the
+#: per-app latency sum of ``remote`` passes 2**20, where the float32
+#: order of its adds shows in the window snapshots)
+TELEMETRY_WINDOW = 32
+TELEMETRY_POINTS = {"capture": ("ata", "crossbar", 96),
+                    "ata_1536": ("ata", "ideal", 1536),
+                    "victim_1536": ("victim", "ideal", 1536),
+                    "remote_1536": ("remote", "ideal", 1536)}
 #: the reference's registered architectures beyond the paper's four
 ZOO_ARCHITECTURES = tuple(a for a in registered_archs()
                           if a not in PAPER_ARCHITECTURES)
@@ -153,6 +170,35 @@ def write_noc_fixture(path: str = NOC_FIXTURE) -> None:
     }
     with open(path, "w") as f:
         json.dump(doc, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
+def reference_telemetry_point(name: str) -> dict:
+    """One point of the telemetry file, recomputed with JAX."""
+    from repro.core import TelemetryConfig
+    arch, noc, rounds = TELEMETRY_POINTS[name]
+    trace = make_trace(dataclasses.replace(APPS["cfd"], rounds=rounds),
+                       kernel=0)
+    res, tl = simulate(arch, trace, noc=noc,
+                       telemetry=TelemetryConfig(window=TELEMETRY_WINDOW))
+    return {"arch": arch, "noc": noc, "app": "cfd", "kernel": 0,
+            "rounds": rounds, "result": result_dict(res),
+            "dtypes": {k: str(v.dtype) for k, v in tl.cumulative.items()},
+            "cumulative": {k: v.tolist() for k, v in tl.cumulative.items()}}
+
+
+def write_telemetry_fixture(path: str = TELEMETRY_FIXTURE) -> None:
+    doc = {
+        "what": "repro.core.simulate(telemetry=TelemetryConfig(window=32))"
+                " of cfd kernel 0, paper geometry, default probe backend: "
+                "the SimTimeline's cumulative per-window arrays (int64 / "
+                "float64, leading axis = windows) and the SimResult",
+        "window": TELEMETRY_WINDOW,
+        "points": {name: reference_telemetry_point(name)
+                   for name in TELEMETRY_POINTS},
+    }
+    with open(path, "w") as f:
+        json.dump(doc, f, sort_keys=True, separators=(",", ":"))
         f.write("\n")
 
 
@@ -334,6 +380,80 @@ def test_port_stacked_noc_pass_reproduces_noc_fixture():
                             f"{p.arch}/{p.noc}/{p.geom.noc_bw}")
 
 
+def _telemetry_doc() -> dict:
+    with open(TELEMETRY_FIXTURE) as f:
+        return json.load(f)
+
+
+def _fixture_cumulative(point: dict) -> dict:
+    """A stored point's cumulative arrays, in their stored dtypes."""
+    return {k: np.asarray(v, point["dtypes"][k])
+            for k, v in point["cumulative"].items()}
+
+
+def test_telemetry_fixture_covers_its_points():
+    doc = _telemetry_doc()
+    assert doc["window"] == TELEMETRY_WINDOW
+    assert set(doc["points"]) == set(TELEMETRY_POINTS)
+    for name, (arch, noc, rounds) in TELEMETRY_POINTS.items():
+        point = doc["points"][name]
+        assert (point["arch"], point["noc"], point["rounds"]) == \
+            (arch, noc, rounds)
+        cum = _fixture_cumulative(point)
+        assert len(cum) == 21, name
+        assert {v.shape[0] for v in cum.values()} == \
+            {rounds // TELEMETRY_WINDOW}, name
+        assert cum["lat_hist"].dtype == np.int64
+        assert cum["lat_hist"][-1].sum() == \
+            point["result"]["per_app"][0]["l1_lat_n"], name
+        if arch == "remote":   # past 2**20: the float32 order shows
+            assert cum["app_lat_sum"][-1, 0] > 2 ** 20, name
+        if noc == "crossbar":
+            assert cum["noc.link_flits"][-1].sum() > 0, name
+
+
+def test_telemetry_fixture_matches_reference_simulate():
+    """The capture point recomputed with JAX, every number equal."""
+    want = _telemetry_doc()["points"]["capture"]
+    got = json.loads(json.dumps(reference_telemetry_point("capture")))
+    assert got == want
+
+
+def test_port_reproduces_telemetry_fixture():
+    """The port on the CPU: the capture point through ``simulate``, and
+    the 1536-round points in one ``SweepGrid`` run (``ata`` and
+    ``victim`` in one stacked pass), each cumulative array equal to the
+    stored one (dtype included)."""
+    from repro_torch.core import APPS as PORT_APPS
+    from repro_torch.core import SweepGrid, TelemetryConfig
+    from repro_torch.core import make_trace as port_make_trace
+    from repro_torch.core import simulate as port_simulate
+    doc = _telemetry_doc()
+    tc = TelemetryConfig(window=TELEMETRY_WINDOW)
+
+    def trace(rounds):
+        return port_make_trace(dataclasses.replace(PORT_APPS["cfd"],
+                                                   rounds=rounds), kernel=0)
+
+    def check(name, res, tl):
+        want = doc["points"][name]
+        assert_result_close(result_dict(res), want["result"], name)
+        got = tl.cumulative
+        assert sorted(got) == sorted(want["cumulative"]), name
+        for k, w in _fixture_cumulative(want).items():
+            assert got[k].dtype == w.dtype, (name, k)
+            np.testing.assert_array_equal(got[k], w, err_msg=f"{name} {k}")
+        tl.check(res)
+
+    check("capture", *port_simulate("ata", trace(96), noc="crossbar",
+                                    telemetry=tc, device="cpu"))
+    grid = SweepGrid(("ata", "victim", "remote"), None, [trace(1536)])
+    run = grid.run(telemetry=tc, device="cpu")
+    assert run.report.n_executables == 2
+    for p, res, tl in zip(grid.points, run.results, run.timelines):
+        check(f"{p.arch}_1536", res, tl)
+
+
 if __name__ == "__main__":
     import sys
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
@@ -349,3 +469,6 @@ if __name__ == "__main__":
     if which in ("noc", "all"):
         write_noc_fixture()
         print(f"wrote {os.path.normpath(NOC_FIXTURE)}")
+    if which in ("telemetry", "all"):
+        write_telemetry_fixture()
+        print(f"wrote {os.path.normpath(TELEMETRY_FIXTURE)}")

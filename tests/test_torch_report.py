@@ -156,3 +156,23 @@ def test_markdown_and_files_match_the_reference(cli, tmp_path):
     assert json.loads((tmp_path / "port.json").read_text()) == rep
     assert "## Multi-tenant fairness" in open(mine).read()
     assert "## Interconnect topology sensitivity" in open(mine).read()
+
+
+def test_report_carries_a_manifest_and_still_gates(cli):
+    """``run_sensitivity`` attaches the run manifest, as the reference's
+    report does; the gate reads only the baseline's sections, so it
+    passes with or without it."""
+    rc, rep, _ = cli
+    man = rep["manifest"]
+    assert {"git_sha", "torch_version", "cuda_version", "backend",
+            "device_name", "power_limit", "kernel_builds", "compile_counts",
+            "phases_wall_s"} <= set(man)
+    assert set(man["phases_wall_s"]) == {"sweep", "mix_grid", "report"}
+    assert sorted(man["kernel_builds"]) == [
+        "ata_probe_rank", "ata_tag_probe", "flash_attention", "wkv6"]
+    base = report.load_report(BASELINE)
+    assert "manifest" not in base
+    assert rc == 0 and report.compare_reports(base, rep) == []
+    bare = {k: v for k, v in rep.items() if k != "manifest"}
+    assert report.compare_reports(base, bare) == []
+    assert ref_compare(base, rep) == []

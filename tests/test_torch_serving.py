@@ -90,12 +90,10 @@ def _assert_counters(res, st):
 
 
 def _assert_results_equal(got, want):
-    """Every ServeResult field bit-equal (the reference's telemetry
-    fields aside)."""
-    assert got._fields == want._fields[:-1]       # all but hist_exact
+    """Every ServeResult field bit-equal, the telemetry fields
+    (``lat_hist``, ``hist_exact``) included."""
+    assert got._fields == want._fields
     for f in got._fields:
-        if f == "lat_hist":
-            continue
         g, w = getattr(got, f), getattr(want, f)
         if isinstance(w, np.ndarray):
             assert g.dtype == w.dtype, f
