@@ -62,8 +62,8 @@ script then exits non-zero with no result line):
 7. serving exactness: the engine on the card against the port's numpy
    oracle at the reference's test sizes (every policy x B, and the
    sequential stream), all 24 cells of the committed serving baseline
-   (``benchmarks/baselines/serving_rounds512.json``), the ``cuda`` and
-   ``torch`` probe backends bit-equal, NoC flit conservation;
+   (``benchmarks/baselines/serving_rounds512.json``), NoC flit
+   conservation;
 8. telemetry and observability (``telemetry=`` of ``simulate``,
    ``SweepGrid.run`` and ``serve_stream``; ``repro_torch.obs``): the
    telemetry capture's simulator point (``cfd`` kernel 0, ``ata`` on the
@@ -81,25 +81,40 @@ script then exits non-zero with no result line):
    kernel builds); the phase's launches counted from 0 (``ata_probe_rank``
    exactly 96 + 2 x 1536); an ``ata`` round with telemetry profiled
    beside phase 4's plain one;
-9. the serving main path at ``fig_serving_scale.py``'s shape cut to a
-   quarter of its depth: one 16-shard chat+rag stream of about 250,000
-   requests replayed under ``ata`` at B=4, with the launch counters
-   zeroed just before and read just after, and a profile of 64
-   sub-rounds;
-10. the LM inference path at full width (qwen3-0.6b and rwkv6-3b, weights
+9. the benchmark surface (``repro_torch.launch``): (a) ``kernel_micro``
+   at the reference's shapes, the probes bit-equal to their ``ref``
+   routes and ``flash_attention``/``wkv6`` (f32) within atol 1e-5 + rtol
+   1e-4, and the kernel roofline's device times beside its model; (b)
+   ``sim_speed`` at 64 rounds over the ``torch``, ``torch_unfused`` and
+   ``cuda`` probe backends, gated by ``compare_simspeed`` against
+   ``benchmarks/baselines/simspeed_rounds64.json``, the backends' grid
+   results bit-equal; (c) the geometry and NoC-topology figures at 96
+   rounds (finite ratios; under ``ideal`` the gap flat in ``noc_bw``,
+   under ``crossbar`` and ``ring`` closing monotonically as it shrinks);
+   (d) the serving scale grid at 512 rounds on the ``torch`` probe,
+   gated by ``compare_serving`` against the serving baseline, every cell
+   equal to phase 7's ``cuda`` replay and its exact p50/p99 to the
+   baseline's; (e) ``check_regression`` on both reports. ``ata_probe_rank``
+   launches in (b) and (c) counted from 0 and exactly as due;
+10. the serving main path at ``fig_serving_scale.py``'s shape cut to a
+    quarter of its depth: one 16-shard chat+rag stream of about 250,000
+    requests replayed under ``ata`` at B=4, with the launch counters
+    zeroed just before and read just after, and a profile of 64
+    sub-rounds;
+11. the LM inference path at full width (qwen3-0.6b and rwkv6-3b, weights
     made on the card from fixed seeds): prefill ``forward`` at B=1, T=4096
     on the "kernel" route, launch counters zeroed just before and read
     just after, held against the "ref" route;
-11. LM decode: 64 teacher-forced ``decode_step`` calls against
+12. LM decode: 64 teacher-forced ``decode_step`` calls against
     ``forward``, and a profiled decode step; for rwkv6 also against a
     forward whose WKV6 is exact (f64), with per-layer counts of the bf16
     WKV6 outputs that differ from the exact ones;
-12. ``ModelServer`` at the reference launcher's defaults cut to half its
+13. ``ModelServer`` at the reference launcher's defaults cut to half its
     requests (8 requests, 4 shards, block 16, 8 decode steps, ``ata``)
     for both models, launch
     counters zeroed just before and read just after: the directory's
     stats against ``run_workload``, and one request served cold and warm;
-13. the per-phase times, the card line again, a ``kernels`` JSON line,
+14. the per-phase times, the card line again, a ``kernels`` JSON line,
     and as the last line ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke_report.json``.
@@ -121,10 +136,6 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 REPORT = ROOT / "chiprun_out" / "chip_smoke_report.json"
-
-#: H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12      # non-tensor-core rate; the compares are int32
 
 #: tests/test_arch_registry.py::GOLDEN (seed simulator, rounds=192, kernel 1)
 GOLDEN = {
@@ -333,23 +344,8 @@ def kernel_device_ms(fn, name: str, n=100) -> float:
     """Mean device time per call of ``fn`` spent in the kernels whose
     names hold ``name`` (torch.profiler); None when the profiler shows no
     device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for ev in prof.key_averages():
-        if name in ev.key:
-            total += ev.device_time_total
-            count += ev.count
-    if count == 0 or total <= 0:
-        return None
-    return total / n / 1e3      # us -> ms
+    from repro_torch.launch.common import kernel_device_ms as device_ms
+    return device_ms(fn, name, n=n)
 
 
 def launch_floor_ms(device) -> float:
@@ -370,26 +366,15 @@ def device_kernels(prof) -> list:
 
 
 def probe_rank_bound(args, G=10):
-    """(bound_ms, bound_by, bytes, ops) for these inputs: each request
-    reads its own row and its cluster's set rows (W int32 tags + valid +
-    dirty bytes each, every distinct row once), the request inputs once
-    and writes the six outputs once; the work is one compare per way of
-    each row it scans."""
-    set_idx, _, core, cbase, _, tags = (a.cpu().numpy() for a in args[:6])
-    P, C, S, W = tags.shape
-    R = set_idx.shape[1]
-    p = np.broadcast_to(np.arange(P)[:, None], (P, R))
-    rows = {(pp, cc, ss) for pp, cb, ss in zip(p.ravel(), cbase.ravel(),
-                                              set_idx.ravel())
-            for cc in range(cb, min(cb + G, C))}
-    state_bytes = len(rows) * W * (4 + 1 + 1)
-    io_bytes = P * R * (4 * 4 + 1) + P * R * (1 + 4 + 1 + 4 + 4 + 4)
-    nbytes = state_bytes + io_bytes
-    ops = P * R * G * W
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            nbytes, ops)
+    """(bound_ms, bound_by, bytes, ops) for these inputs, by
+    ``launch/roofline.py``'s model: every distinct row a request's
+    cluster probes read once, the request inputs read and the six
+    outputs written once; one compare per way of each row scanned."""
+    from repro_torch.launch import roofline
+    nbytes, ops = roofline.probe_rank_traffic(
+        args[0].cpu().numpy(), args[3].cpu().numpy(), args[5].shape, G)
+    return roofline.bound(nbytes, ops, roofline.INT32_OPS_PER_S) + (
+        nbytes, ops)
 
 
 def phase_kernels(device) -> dict:
@@ -502,20 +487,17 @@ def directory_lane(C, S, W, R, seed, device):
 
 
 def tag_probe_bound(args, hits, ways):
-    """(bound_ms, bound_by, bytes, ops) for these inputs: the request
-    inputs read once, each distinct (cache, set) row of tags (4 B/way) +
-    valid (1 B/way) read once, both outputs written once; the work is
-    one compare per way up to the first match (all W on a miss)."""
-    set_idx, _, tags, _ = (a.cpu().numpy() for a in args)
-    C, S, W = tags.shape
-    R = set_idx.shape[0]
-    nbytes = R * 8 + C * len(np.unique(set_idx)) * W * 5 + R * C * 5
-    ops = int(np.where(hits.cpu().numpy(), ways.cpu().numpy() + 1,
-                       W).sum())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            nbytes, ops)
+    """(bound_ms, bound_by, bytes, ops) for these inputs, by
+    ``launch/roofline.py``'s model: the request inputs read once, each
+    distinct (cache, set) row of tags + valid read once, both outputs
+    written once; one compare per way up to the first match (all W on a
+    miss)."""
+    from repro_torch.launch import roofline
+    nbytes, ops = roofline.tag_probe_traffic(
+        args[0].cpu().numpy(), args[2].shape, hits.cpu().numpy(),
+        ways.cpu().numpy())
+    return roofline.bound(nbytes, ops, roofline.INT32_OPS_PER_S) + (
+        nbytes, ops)
 
 
 def phase_tag_probe(device) -> dict:
@@ -1169,9 +1151,6 @@ SERVE_COUNTERS = ("local_hits", "remote_hits", "recomputed_blocks",
                   "probe_messages", "remote_fetch_blocks")
 SERVE_FLOATS = ("hit_rate", "load_imbalance", "p50_latency", "p99_latency",
                 "requests_per_kcycle")
-#: two baseline cells replayed again on the plain ``torch`` probe
-TORCH_PROBE_CELLS = ((16, "chat+batch", "broadcast", 4),
-                     (8, "chat+rag", "ata", 4))
 #: phase 7's streams, results and baseline cells, for the telemetry phase
 _SERVE_EXACT = {}
 
@@ -1257,32 +1236,20 @@ def phase_serving_exact(device) -> dict:
                         cells={(c["shards"], c["mix"], c["policy"],
                                 c["slots"]): c for c in rep["cells"]})
 
-    # (c) the plain probe backend gives the same results, bit for bit
-    for ck in TORCH_PROBE_CELLS:
-        st = streams[ck[:2]]
-        res = serve_stream(ck[2], st.batched(ck[3]),
-                           ServingConfig(probe_backend="torch"),
-                           device=device)
-        if not same_serve_result(res, results[ck]):
-            raise AssertionError(f"(c) {ck}: cuda and torch probe backends "
-                                 "disagree")
-    log(f"(c) probe_backend='torch' bit-equal to 'cuda' on "
-        f"{len(TORCH_PROBE_CELLS)} baseline cells")
-
-    # (d) NoC pricing conserves flits and leaves the counters alone
+    # (c) NoC pricing conserves flits and leaves the counters alone
     for noc in ("crossbar", "ring"):
         for policy in SERVING_POLICIES:
             res = serve_stream(policy, stream.batched(2),
                                ServingConfig(noc=noc), device=device)
             check(res, ref.run_stream(policy, ref.AtaCacheConfig(), stream),
-                  f"(d) {policy} {noc}")
+                  f"(c) {policy} {noc}")
             if res.noc_injected != res.noc_delivered + res.noc_queued:
-                raise AssertionError(f"(d) {policy} {noc}: injected "
+                raise AssertionError(f"(c) {policy} {noc}: injected "
                                      f"{res.noc_injected} != delivered + "
                                      "queued")
             if policy != "private" and res.noc_injected <= 0:
-                raise AssertionError(f"(d) {policy} {noc}: no traffic")
-    log("(d) crossbar and ring: injected == delivered + queued, counters "
+                raise AssertionError(f"(c) {policy} {noc}: no traffic")
+    log("(c) crossbar and ring: injected == delivered + queued, counters "
         "== oracle, every policy")
     return {"a_replays": n_a, "b_cells": len(rep["cells"]),
             "b_max_rel_err": worst, "b_s": b_s}
@@ -1494,7 +1461,212 @@ def phase_telemetry(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the serving main path at scale
+# phase 9: the benchmark surface
+# ---------------------------------------------------------------------------
+SIMSPEED_BASELINE = ROOT / "benchmarks" / "baselines" / \
+    "simspeed_rounds64.json"
+SIMSPEED_BACKENDS = ("torch", "torch_unfused", "cuda")
+#: the grid figures' rounds: the sensitivity baseline's
+FIGURE_ROUNDS = 96
+
+
+def ipc_ratio(cells, arch, geom, noc="ideal") -> float:
+    return cells[(arch, geom, noc)].ipc / cells[("private", geom, noc)].ipc
+
+
+def phase_bench(device) -> dict:
+    """(a) ``kernel_micro`` and the kernel roofline on the card; (b)
+    ``sim_speed`` over three probe backends gated against the simspeed
+    baseline; (c) the geometry and NoC figures at 96 rounds; (d) the
+    serving scale grid on the ``torch`` probe gated against the serving
+    baseline and held to phase 7's ``cuda`` replays; (e) the
+    ``check_regression`` CLI on both reports."""
+    import torch
+    from repro_torch.core import figures
+    from repro_torch.core.report import (compare_serving, compare_simspeed,
+                                         load_report)
+    from repro_torch.kernels import ata_probe_rank as kmod
+    from repro_torch.kernels import ata_tag_probe as tmod
+    from repro_torch.launch import (check_regression, kernel_micro,
+                                    roofline, serving_scale, sim_speed)
+    from repro_torch.serving import ServingConfig
+    REPORT.parent.mkdir(exist_ok=True)
+    walls, out = {}, {}
+
+    # (a) every kernel against its "ref" route at the reference's shapes
+    t0 = time.perf_counter()
+    tmod.launches = 0
+    micro = kernel_micro.run(device)
+    torch.cuda.synchronize()
+    micro_tag_launches = tmod.launches
+    for name in ("ata_tag_probe", "ata_probe_rank"):
+        m = micro[name]
+        for i, (g, w) in enumerate(zip(m["kernel_out"], m["ref_out"])):
+            if m["maxerr"] != 0 or g.dtype != w.dtype or not torch.equal(g,
+                                                                         w):
+                raise AssertionError(f"(a) {name} output {i} differs from "
+                                     f"its ref route (maxerr {m['maxerr']})")
+    check_close(micro["flash_attention"]["kernel_out"],
+                micro["flash_attention"]["ref_out"], ATTN_TOL["float32"],
+                "(a) flash_attention vs ref")
+    for i in range(2):
+        check_close(micro["wkv6"]["kernel_out"][i],
+                    micro["wkv6"]["ref_out"][i], ATTN_TOL["float32"],
+                    f"(a) wkv6 output {i} vs ref")
+    floor = launch_floor_ms(device)
+    table = roofline.kernel_table(device=device)
+    kernels = {}
+    for name, nbytes, ops, ai, mem_s, comp_s, bnd, meas in table:
+        kernels[name] = {
+            "ref_us": micro[name]["ref_us"],
+            "kernel_us": micro[name]["kernel_us"],
+            "maxerr": micro[name]["maxerr"], "device_us": meas,
+            "bound_us": max(mem_s, comp_s) * 1e6, "bound_by": bnd,
+            "bytes": nbytes, "ops": ops, "ops_per_byte": ai}
+        log(f"(a) {name}: device {meas} us per call (launch floor "
+            f"{floor * 1e3 if floor else None} us), bound "
+            f"{max(mem_s, comp_s) * 1e6:.4f} us ({bnd}: {nbytes} B, {ops} "
+            f"ops); kernel route {micro[name]['kernel_us']:.1f} us, ref "
+            f"{micro[name]['ref_us']:.1f} us per call on the host clock; "
+            f"max abs err {micro[name]['maxerr']}")
+    log(json.dumps({"bench_kernels": kernels, "launch_floor_ms": floor},
+                   default=str))
+    walls["a"] = time.perf_counter() - t0
+
+    # (b) simulator rounds/s per probe backend, gated against the baseline
+    t0 = time.perf_counter()
+    sim_json = REPORT.parent / "bench_simspeed.json"
+    with recorded_grid_runs() as runs:
+        kmod.launches = 0
+        sim = sim_speed.run(rounds=64, reps=1, backends=SIMSPEED_BACKENDS,
+                            out_json=str(sim_json), device=device)
+        torch.cuda.synchronize()
+        sim_launches = kmod.launches
+    failures = compare_simspeed(load_report(SIMSPEED_BASELINE), sim)
+    if failures:
+        raise AssertionError(f"(b) simspeed gate: {failures}")
+    if len(runs) != 2 * len(SIMSPEED_BACKENDS):
+        raise AssertionError(f"(b) {len(runs)} grid runs")
+    for i, (points, results) in enumerate(runs[1:], 1):
+        for p, (r, w) in enumerate(zip(results, runs[0][1])):
+            same_results(r, w, f"(b) run {i} ({points[p].probe_backend}) "
+                         f"point {p}")
+    check_launches(sim_launches, runs, device, "(b) sim_speed")
+    rps = {c["backend"]: c["rounds_per_sec"] for c in sim["cells"]}
+    out["simspeed"] = {"cells": sim["cells"], "headline": sim["headline"],
+                       "cuda_vs_torch": rps["cuda"] / rps["torch"],
+                       "launches": sim_launches}
+    walls["b"] = time.perf_counter() - t0
+    log(f"(b) sim_speed at 64 rounds, 13 geometries: " + ", ".join(
+        f"{c['backend']} {c['rounds_per_sec']:.1f} rounds/s "
+        f"({c['wall_s']:.4f} s, {c['n_executables']} passes)"
+        for c in sim["cells"]) + f"; fused_speedup "
+        f"{sim['headline']['fused_speedup']:.4f} (baseline 1.049, floor "
+        f"0.734), cuda/torch {rps['cuda'] / rps['torch']:.4f}; the three "
+        f"backends' {len(runs)} grid runs bit-equal; ata_probe_rank "
+        f"launched {sim_launches} times (= due)")
+
+    # (c) the geometry and NoC-topology figures
+    t0 = time.perf_counter()
+    with recorded_grid_runs() as runs:
+        kmod.launches = 0
+        geo = figures.sweep_geometry_run(rounds=FIGURE_ROUNDS, device=device)
+        noc = figures.noc_topology_run(rounds=FIGURE_ROUNDS, device=device)
+        torch.cuda.synchronize()
+        fig_launches = kmod.launches
+    check_launches(fig_launches, runs, device, "(c) figures")
+    rows = figures.sweep_geometry(geo) + figures.noc_topology(noc)
+    ratios = [ipc_ratio(geo.cells, a, g) for a, g, _ in geo.cells
+              if a != "private"]
+    ratios += [ipc_ratio(noc.cells, a, g, n) for a, g, n in noc.cells
+               if a != "private"]
+    if not all(math.isfinite(r) and r > 0 for r in ratios):
+        raise AssertionError(f"(c) a ratio is not finite: {ratios}")
+    bws = sorted({g.noc_bw for _, g, _ in noc.cells})
+    gap = {n: [ipc_ratio(noc.cells, "ata", figures.knob_geometry(
+        "noc_bw", v), n) for v in bws] for n in ("ideal", "crossbar", "ring")}
+    if max(gap["ideal"]) - min(gap["ideal"]) >= 1e-6:
+        raise AssertionError(f"(c) ideal ata/private moves with noc_bw: "
+                             f"{gap['ideal']}")
+    for n in ("crossbar", "ring"):
+        g = gap[n]
+        if not (all(a <= b + 1e-9 for a, b in zip(g, g[1:]))
+                and g[0] < g[-1] and g[-1] <= gap["ideal"][-1] + 1e-6):
+            raise AssertionError(f"(c) {n} gap not closing monotonically "
+                                 f"as noc_bw shrinks: {g}")
+    out["figures"] = {"rows": rows, "gaps": gap, "launches": fig_launches,
+                      "passes": [geo.report.n_executables,
+                                 noc.report.n_executables]}
+    walls["c"] = time.perf_counter() - t0
+    log(f"(c) {len(rows)} figure rows at {FIGURE_ROUNDS} rounds "
+        f"({geo.report.n_executables} + {noc.report.n_executables} passes); "
+        f"ata/private by noc_bw {bws}: " + "; ".join(
+            f"{n} {[round(x, 4) for x in g]}" for n, g in gap.items())
+        + f"; ata_probe_rank launched {fig_launches} times (= due)")
+
+    # (d) the serving scale grid on the plain probe, gated, and every cell
+    # equal to phase 7's cuda replay of it
+    t0 = time.perf_counter()
+    if not _SERVE_EXACT:
+        raise AssertionError("(d) needs phase 'serving_exact'")
+    serve_json = REPORT.parent / "bench_serving.json"
+    base = load_report(BASELINE)
+    tmod.launches = 0
+    srep = serving_scale.run(rounds=512, reps=1,
+                             cfg=ServingConfig(probe_backend="torch"),
+                             out_json=str(serve_json), device=device)
+    if tmod.launches != 0:
+        raise AssertionError(f"(d) the torch probe launched ata_tag_probe "
+                             f"{tmod.launches} times")
+    failures = compare_serving(base, srep)
+    if failures:
+        raise AssertionError(f"(d) serving gate: {failures}")
+    for cell in srep["cells"]:
+        ck = (cell["shards"], cell["mix"], cell["policy"], cell["slots"])
+        want = _SERVE_EXACT["results"][ck]
+        for f in SERVE_COUNTERS + ("hit_rate", "load_imbalance",
+                                   "requests_per_kcycle"):
+            if cell[f] != getattr(want, f):
+                raise AssertionError(f"(d) {ck}: {f} {cell[f]} != phase 7's"
+                                     f" cuda {getattr(want, f)}")
+        bc = _SERVE_EXACT["cells"][ck]
+        if not cell["hist_exact"] or (cell["p50_latency"],
+                                      cell["p99_latency"]) != (
+                bc["p50_latency"], bc["p99_latency"]):
+            raise AssertionError(f"(d) {ck}: p50/p99 {cell['p50_latency']}"
+                                 f"/{cell['p99_latency']} (hist_exact "
+                                 f"{cell['hist_exact']}) vs the baseline's "
+                                 f"{bc['p50_latency']}/{bc['p99_latency']}")
+    out["serving"] = {"headline": srep["headline"],
+                      "cells": len(srep["cells"]),
+                      "probe_backend": srep["config"]["probe_backend"]}
+    walls["d"] = time.perf_counter() - t0
+    log(f"(d) serving scale at 512 rounds on the torch probe: "
+        f"{len(srep['cells'])} cells gated against {BASELINE.name} with no "
+        f"failure, each equal to phase 7's cuda replay (5 counters, hit "
+        f"rate, load imbalance, requests/kcycle), hist_exact, p50/p99 = the "
+        f"baseline's; batched_model_speedup "
+        f"{srep['headline']['batched_model_speedup']:.4f}")
+
+    # (e) the regression CLI, in process, on both reports
+    t0 = time.perf_counter()
+    for base_path, cand in ((SIMSPEED_BASELINE, sim_json),
+                            (BASELINE, serve_json)):
+        rc = check_regression.main([str(base_path), str(cand)])
+        if rc != 0:
+            raise AssertionError(f"(e) check_regression {base_path.name} "
+                                 f"{cand.name}: exit {rc}")
+    walls["e"] = time.perf_counter() - t0
+    log(f"(e) check_regression: 0 on both reports; walls (s) "
+        f"{ {k: round(v, 2) for k, v in walls.items()} }")
+    out.update(kernels=kernels, launch_floor_ms=floor, walls=walls,
+               launches={"ata_probe_rank": sim_launches + fig_launches,
+                         "ata_tag_probe": micro_tag_launches})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the serving main path at scale
 # ---------------------------------------------------------------------------
 SCALE_SHARDS = 16
 SCALE_MIX = ("chat", "rag")
@@ -1622,7 +1794,6 @@ def profile_sub_rounds(stream, device, rows: int = 64) -> dict:
 # ---------------------------------------------------------------------------
 # phase 2, continued: flash_attention and wkv6 against their plain versions
 # ---------------------------------------------------------------------------
-BF16_PEAK_OPS_PER_S = 989e12   # dense bf16 tensor-core rate
 #: kernel against plain version, elementwise |got - want| <= atol + rtol
 #: |want| in f32, where both sides differ in summation order only
 ATTN_TOL = {"float32": (1e-5, 1e-4)}
@@ -1677,27 +1848,6 @@ def check_bf16_step(got, want, where) -> float:
     return float(err.max())
 
 
-def bound(nbytes: int, ops: float, ops_per_s: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
-    return (max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def visible_pairs(B, Hq, Tq, Tk, causal, window, kv_len) -> int:
-    """(query, key) pairs the attention mask lets through for these
-    inputs: the work the kernel has to do."""
-    qpos = np.arange(Tq)[:, None] + (Tk - Tq)
-    kpos = np.arange(Tk)[None, :]
-    mask = np.ones((Tq, Tk), bool)
-    if causal:
-        mask &= kpos <= qpos
-    if window is not None:
-        mask &= kpos > qpos - window
-    lens = [Tk] * B if kv_len is None else kv_len
-    return Hq * sum(int(mask[:, :min(int(n), Tk)].sum()) for n in lens)
-
-
 def attn_inputs(B, Hq, Hkv, Tq, Tk, D, dtype, device, seed):
     import torch
     g = torch.Generator(device=device).manual_seed(seed)
@@ -1722,6 +1872,9 @@ def phase_flash_attention(device) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.launch.roofline import (BF16_OPS_PER_S, FP32_OPS_PER_S,
+                                             attention_traffic, bound,
+                                             visible_pairs)
     cases, worst = {}, 0.0
     for name, (B, Hq, Hkv, Tq, Tk, D, dt, causal, window,
                kv_len) in ATTN_CASES.items():
@@ -1761,9 +1914,8 @@ def phase_flash_attention(device) -> dict:
     check_close(kernel(), library(), SDPA_TOL,
                 "flash_attention vs scaled_dot_product_attention")
     pairs = visible_pairs(B, Hq, Tq, Tk, causal, window, kv_len)
-    ops = 4 * D * pairs
-    nbytes = 2 * (2 * B * Hq * Tq * D + 2 * B * Hkv * Tk * D)
-    bound_ms, bound_by = bound(nbytes, ops, BF16_PEAK_OPS_PER_S)
+    nbytes, ops = attention_traffic(B, Hq, Hkv, Tq, Tk, D, 2, pairs)
+    bound_ms, bound_by = bound(nbytes, ops, BF16_OPS_PER_S)
     t = {"plain_ms_runs": [time_ms(plain, n=3, warm=1)],
          "library_ms_runs": [time_ms(library, n=20, warm=3)],
          "call_ms": time_ms(kernel, n=20, warm=2),
@@ -1783,8 +1935,8 @@ def phase_flash_attention(device) -> dict:
     t["f32"] = {"shape": [B, Hq, Hkv, Tq, Tk, D],
                 "device_ms": kernel_device_ms(f32, "attn_f32_kernel", n=10),
                 "call_ms": time_ms(f32, n=10, warm=2),
-                "bound_ms": bound(4 * (2 * B * Hq * Tq * D + 2 * B * Hkv * Tk
-                                       * D), 4 * D * pairs32,
+                "bound_ms": bound(*attention_traffic(B, Hq, Hkv, Tq, Tk, D,
+                                                     4, pairs32),
                                   FP32_OPS_PER_S)[0]}
     log(f"flash_attention f32 case {t['f32']['shape']}: kernel "
         f"{t['f32']['device_ms']} ms on the device, bound "
@@ -1814,6 +1966,8 @@ def wkv6_inputs(B, H, T, K, V, device, seed, *, decay=None):
 def phase_wkv6(device) -> dict:
     import torch
     from repro_torch.kernels import wkv6 as wmod
+    from repro_torch.launch.roofline import (FP32_OPS_PER_S, bound,
+                                             wkv6_traffic)
     cases, worst = {}, 0.0
 
     def check(name, got, want):
@@ -1869,11 +2023,8 @@ def phase_wkv6(device) -> dict:
     kernel = lambda: wmod.wkv6(*x)  # noqa: E731
     plain = lambda: wmod.wkv6_plain(*x)  # noqa: E731
     B, T, V = 1, LM_SEQ, K
-    nbytes = (B * H * T * (2 * K + 2 * K + 2 * V + 4 * K)   # r, k, v, w
-              + H * K * 4 + B * H * T * V * 2 + B * H * K * V * 4)
-    # per step and (i, j): r_i S_ij (2 flops) and S_ij e^w_i + k_i v_j (3);
-    # the bonus term factors as v_j sum_i r_i u_i k_i, O(K + V) a step
-    ops = B * H * T * (5 * K * V + 3 * K + 2 * V)
+    # bf16 r, k, v and o, f32 w: the LM path's dtypes
+    nbytes, ops = wkv6_traffic(B, H, T, K, V, 2, 4, 2, False)
     bound_ms, bound_by = bound(nbytes, ops, FP32_OPS_PER_S)
     t = {"plain_ms_runs": [time_ms(plain, n=1, warm=0)],
          "call_ms": time_ms(kernel, n=20, warm=2),
@@ -1885,9 +2036,7 @@ def phase_wkv6(device) -> dict:
     # launches; its bound counts bytes, each
     # input read once (s0 f32 included) and each output written once
     step = lambda: wmod.wkv6(*x1, s0)  # noqa: E731
-    t1_bytes = (H * (2 * K + 2 * K + 2 * K + 4 * K) + H * K * 4
-                + 2 * H * K * K * 4 + H * K * 2)
-    t1_ops = H * (5 * K * K + 3 * K + 2 * K)
+    t1_bytes, t1_ops = wkv6_traffic(1, H, 1, K, K, 2, 4, 2, True)
     t["t1"] = {"device_ms": kernel_device_ms(step, "wkv6_scan_kernel",
                                              n=50),
                "call_ms": time_ms(step, n=50, warm=5), "bytes": t1_bytes,
@@ -1905,7 +2054,7 @@ def phase_wkv6(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 10-12: the LM inference path at full width
+# phases 11-13: the LM inference path at full width
 # ---------------------------------------------------------------------------
 LM_ARCHS = ("qwen3-0.6b", "rwkv6-3b")
 LM_SEEDS = {"qwen3-0.6b": 0, "rwkv6-3b": 1}
@@ -2319,6 +2468,7 @@ def main() -> int:
                      ("sweep", lambda: phase_sweep(device)),
                      ("serving_exact", lambda: phase_serving_exact(device)),
                      ("telemetry", lambda: phase_telemetry(device)),
+                     ("bench", lambda: phase_bench(device)),
                      ("serving_scale", lambda: phase_serving_scale(device)),
                      ("lm_prefill", lambda: phase_lm_prefill(device)),
                      ("lm_decode", lambda: phase_lm_decode(device)),
@@ -2346,11 +2496,12 @@ def main() -> int:
         "name": "ata_probe_rank", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ata_probe_rank.cu",
         "replaces": "src/repro/kernels/ata_probe_rank.py:54",
-        # the paper suite's, the zoo suite's, the sweep phase's and the
-        # telemetry phase's runs, each counted from 0
+        # the paper suite's, the zoo suite's, the sweep phase's, the
+        # telemetry phase's and the bench phase's runs, each counted from 0
         "launches": (report["suite"]["launches"] + report["zoo"]["launches"]
                      + report["sweep"]["launches"]
-                     + report["telemetry"]["launches"]["ata_probe_rank"]),
+                     + report["telemetry"]["launches"]["ata_probe_rank"]
+                     + report["bench"]["launches"]["ata_probe_rank"]),
         "max_abs_err": report["kernels"]["max_abs_err"],
         "ms": t["device_ms"] if t["device_ms"] is not None else t["call_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -2362,9 +2513,11 @@ def main() -> int:
         "name": "ata_tag_probe", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ata_tag_probe.cu",
         "replaces": "src/repro/kernels/ata_tag_probe.py:32",
-        # the scale replay's and the telemetry phase's, each from 0
+        # the scale replay's, the telemetry phase's and kernel_micro's,
+        # each from 0
         "launches": (report["serving_scale"]["launches"]["ata_tag_probe"]
-                     + report["telemetry"]["launches"]["ata_tag_probe"]),
+                     + report["telemetry"]["launches"]["ata_tag_probe"]
+                     + report["bench"]["launches"]["ata_tag_probe"]),
         "max_abs_err": report["tag_probe"]["max_abs_err"],
         "ms": t["device_ms"] if t["device_ms"] is not None else t["call_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -48,6 +48,7 @@ class AtaPolicy(ArchPolicy):
         # remote-port arbitration, fused under the selected backend
         # (repro_torch.core.probe; the backends are bit-exact).
         pr = fused_probe_rank(geom, l1, reqs, pre_served=pre,
+                              replacement=self.replacement,
                               backend=backend)
         local_hit, remote_ok = pr.local_hit, pr.remote_ok
         # only *actual* remote hits occupy the remote data port — the

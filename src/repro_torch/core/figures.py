@@ -20,16 +20,32 @@ must be in it.
 * :func:`mix_fairness` — ``benchmarks/fig_mix_fairness.py``'s rows from
   one ``run_mixes`` result (a ``MixRun``, not a suite): weighted
   speedup, unfairness and mix IPC per (mix, arch), and the
-  ``ata``-vs-``private`` weighted-speedup ratio per mix.
+  ``ata``-vs-``private`` weighted-speedup ratio per mix;
+* :func:`sweep_geometry` — ``benchmarks/fig_sweep_geometry.py``'s rows
+  from one :func:`sweep_geometry_run`: ``ata``'s IPC against
+  ``private``'s at every value of six geometry knobs (and ``remote``'s on
+  the ``noc_bw`` knob);
+* :func:`noc_topology` — ``benchmarks/fig_noc_topology.py``'s rows from
+  one :func:`noc_topology_run`: the ``ata``/``private`` and
+  ``remote``/``private`` IPC ratios and ``ata``'s mean NoC queue delay
+  per (NoC model, ``noc_bw``).
+
+The two grid runners put their whole grid through one ``SweepGrid.run``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+import dataclasses
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.core.metrics import (AppResult, MixRun, geomean,
-                                      normalized_ipc)
+from repro_torch.core.geometry import GpuGeometry, PAPER_GEOMETRY
+from repro_torch.core.metrics import (AppResult, MixRun, app_traces,
+                                      geomean, grid_app_results,
+                                      kernel_range, normalized_ipc)
+from repro_torch.core.noc import PAPER_NOCS
+from repro_torch.core.report import NOC_BW_VALUES
+from repro_torch.core.sweep import SweepGrid, SweepPoint, SweepReport
 from repro_torch.core.trace import HIGH_LOCALITY, LOW_LOCALITY
 
 Suite = Dict[str, Dict[str, AppResult]]
@@ -147,6 +163,128 @@ def mix_fairness(mix_run: MixRun) -> Rows:
                          f"{ratio:.3f}"))
     rows.append(("fig_mix.executables",
                  str(mix_run.report.n_executables)))
+    return rows
+
+
+#: The high-locality app both grid figures sweep.
+FIGURE_APP = "cfd"
+#: Geometry knob -> swept values; the middle value is the paper
+#: geometry's own. ``svc_port``, ``noc_bw`` and ``hide`` are timing
+#: scalars (one pass); the others change tensor shapes (a pass each).
+KNOBS: Dict[str, Tuple] = {
+    "l1_sets": (4, 8, 16),
+    "l1_ways": (32, 64, 128),
+    "svc_port": (1, 2, 4),
+    "cluster_size": (5, 10, 15),
+    "noc_bw": (8.0, 16.0, 32.0),
+    "hide": (5.0, 10.0, 20.0),
+}
+SWEEP_ARCHS: Tuple[str, ...] = ("private", "ata")
+NOC_ARCHS: Tuple[str, ...] = ("private", "remote", "ata")
+
+
+class GridFigure(NamedTuple):
+    """A grid figure's results: ``{(arch, geom, noc): AppResult}`` over
+    the kernels swept, and the grid run's pass accounting."""
+    cells: Dict[tuple, AppResult]
+    report: SweepReport
+
+
+def knob_geometry(knob: str, value) -> GpuGeometry:
+    """The paper geometry with one knob set to ``value``."""
+    return dataclasses.replace(PAPER_GEOMETRY, **{knob: value})
+
+
+def _grid_figure(cells: Sequence[Tuple[str, GpuGeometry, str]],
+                 kernels_per_app: Optional[int], rounds: Optional[int],
+                 device) -> GridFigure:
+    """Every (arch, geometry, noc) cell over the app's kernels, in one
+    ``SweepGrid.run``; no knob changes the core count, so every
+    geometry takes the paper geometry's traces."""
+    traces = app_traces(FIGURE_APP, PAPER_GEOMETRY,
+                        kernel_range(FIGURE_APP, kernels_per_app),
+                        rounds=rounds)
+    grid = SweepGrid.from_points(SweepPoint(arch, g, t, noc)
+                                 for arch, g, noc in cells for t in traces)
+    run = grid.run(device=device)
+    return GridFigure(grid_app_results(grid, run.results, FIGURE_APP),
+                      run.report)
+
+
+def sweep_geometry_run(kernels_per_app: Optional[int] = 1,
+                       rounds: Optional[int] = None,
+                       device=None) -> GridFigure:
+    """``ata`` and ``private`` at every knob value (``remote`` too on the
+    ``noc_bw`` knob), each distinct (arch, geometry) cell once."""
+    cells = []
+    for knob, values in KNOBS.items():
+        archs = SWEEP_ARCHS + (("remote",) if knob == "noc_bw" else ())
+        cells += [(a, knob_geometry(knob, v), "ideal")
+                  for v in values for a in archs]
+    return _grid_figure(list(dict.fromkeys(cells)), kernels_per_app,
+                        rounds, device)
+
+
+def sweep_geometry(fig: GridFigure) -> Rows:
+    """The ata/private IPC ratio per knob value, and remote/private on
+    the ``noc_bw`` knob."""
+    rows = []
+    for knob, values in KNOBS.items():
+        for v in values:
+            g = knob_geometry(knob, v)
+            base = fig.cells[("private", g, "ideal")].ipc
+            ratio = fig.cells[("ata", g, "ideal")].ipc / base
+            rows.append((f"fig_sweep.{FIGURE_APP}.{knob}={v}.ata_vs_private",
+                         f"{ratio:.3f}"))
+            if knob == "noc_bw":
+                rratio = fig.cells[("remote", g, "ideal")].ipc / base
+                rows.append((f"fig_sweep.{FIGURE_APP}.{knob}={v}"
+                             ".remote_vs_private", f"{rratio:.3f}"))
+    return rows
+
+
+def noc_topology_run(kernels_per_app: Optional[int] = 1,
+                     rounds: Optional[int] = None,
+                     archs: Sequence[str] = NOC_ARCHS,
+                     nocs: Sequence[str] = PAPER_NOCS,
+                     noc_bw: Sequence[float] = NOC_BW_VALUES,
+                     device=None) -> GridFigure:
+    """The archs x NoC models x ``noc_bw`` grid (the report's ``noc``
+    section's topology grid, on one app)."""
+    archs, nocs, noc_bw = tuple(archs), tuple(nocs), tuple(noc_bw)
+    missing = {a for a in ("private", "ata") if a not in archs}
+    if missing:
+        raise ValueError(
+            "fig_noc_topology needs 'private' and 'ata' for the headline "
+            f"ata_vs_private ratio; archs={archs} is missing "
+            f"{sorted(missing)}")
+    return _grid_figure([(a, knob_geometry("noc_bw", v), n) for a in archs
+                         for v in noc_bw for n in nocs],
+                        kernels_per_app, rounds, device)
+
+
+def noc_topology(fig: GridFigure) -> Rows:
+    """Per (NoC model, ``noc_bw``): ata/private, remote/private where
+    ``remote`` ran, and ``ata``'s mean queue delay; then the grid's pass
+    count."""
+    keys = list(fig.cells)
+    nocs = list(dict.fromkeys(k[2] for k in keys))
+    geoms = list(dict.fromkeys(k[1] for k in keys))
+    has_remote = any(k[0] == "remote" for k in keys)
+    rows = []
+    for noc in nocs:
+        for g in geoms:
+            v = g.noc_bw
+            ata = fig.cells[("ata", g, noc)]
+            base = fig.cells[("private", g, noc)].ipc
+            pre = f"fig_noc.{FIGURE_APP}.{noc}.noc_bw={v:g}"
+            rows.append((f"{pre}.ata_vs_private", f"{ata.ipc / base:.3f}"))
+            if has_remote:
+                rratio = fig.cells[("remote", g, noc)].ipc / base
+                rows.append((f"{pre}.remote_vs_private", f"{rratio:.3f}"))
+            rows.append((f"{pre}.ata_queue_delay",
+                         f"{ata.noc_mean_queue_delay:.2f}"))
+    rows.append(("fig_noc.executables", str(fig.report.n_executables)))
     return rows
 
 

@@ -4,8 +4,13 @@ The port of the reference's ``repro.core.report`` sensitivity report:
 the same sections, cells, schema, ``manifest`` block
 (``repro_torch.obs.manifest.run_manifest``) and gate, so the committed
 baselines (``benchmarks/baselines/sensitivity_rounds96.json``) gate the
-port's reports. The reference's other report kinds
-(``compare_simspeed``, ``compare_serving``) are not part of it.
+port's reports. The reference's two other report kinds are here too:
+:func:`compare_simspeed` gates ``launch/sim_speed.py``'s simulator
+throughput reports and :func:`compare_serving` ``launch/serving_scale.py``'s
+serving reports, against ``simspeed_rounds64.json`` and
+``serving_rounds512.json``. Those baselines name the reference's probe
+lowerings; both gates read the baseline's names through
+:data:`REFERENCE_BACKENDS` and then compare exactly as the reference does.
 
 :func:`run_sensitivity` sweeps the contention-policy zoo over widened
 geometry axes around the paper's Table-II point —
@@ -504,4 +509,210 @@ def compare_reports(baseline: dict, candidate: dict, *,
                              key_fn=_noc_cell_key, metric="ipc",
                              metric_label="IPC", rtol=ipc_rtol,
                              label="noc")
+    return failures
+
+
+#: The reference's probe lowerings by the port's names: a committed
+#: baseline's backend names are read through this table, so a reference
+#: baseline gates a port report. Names outside it (the port's own) pass
+#: through unchanged.
+REFERENCE_BACKENDS: Dict[str, str] = {"lax": "torch",
+                                      "lax_unfused": "torch_unfused",
+                                      "pallas": "cuda"}
+
+
+def _port_names(report: dict) -> dict:
+    """``report`` with its simspeed cells' ``backend`` and its config's
+    ``probe_backend`` read through :data:`REFERENCE_BACKENDS`."""
+    out = dict(report)
+    if "cells" in out:
+        out["cells"] = [
+            dict(c, backend=REFERENCE_BACKENDS.get(c["backend"],
+                                                   c["backend"]))
+            if "backend" in c else c for c in out["cells"]]
+    if "probe_backend" in out.get("config", {}):
+        pb = out["config"]["probe_backend"]
+        out["config"] = dict(out["config"],
+                             probe_backend=REFERENCE_BACKENDS.get(pb, pb))
+    return out
+
+
+def compare_simspeed(baseline: dict, candidate: dict, *,
+                     speedup_rtol: float = 0.30,
+                     rps_rtol: Optional[float] = None) -> List[str]:
+    """Regression gate for ``launch/sim_speed.py`` throughput reports
+    (``kind == "simspeed"``); returns human-readable failure strings.
+
+    The blocking check is the **fused speedup ratio**: rounds/sec of the
+    fused ``torch`` backend over the historical ``torch_unfused`` chain,
+    measured back to back on one device, so it is machine-portable. The
+    gate fails when the candidate's ratio falls below the baseline's by
+    more than ``speedup_rtol`` (one-sided: a faster fused path is never
+    a regression). Absolute rounds/sec depends on the host and is gated
+    only when ``rps_rtol`` is given. Also fails on config mismatch,
+    schema downgrade, backends missing from the candidate, and
+    per-backend executable-count growth. The baseline's backend names
+    are read through :data:`REFERENCE_BACKENDS`.
+    """
+    for rep, who in ((baseline, "baseline"), (candidate, "candidate")):
+        if rep.get("kind") != "simspeed":
+            return [f"{who} is not a simspeed report "
+                    f"(kind={rep.get('kind')!r})"]
+    baseline = _port_names(baseline)
+    if candidate.get("schema", 0) < baseline.get("schema", 0):
+        return [f"schema downgrade: baseline {baseline.get('schema')} "
+                f"vs candidate {candidate.get('schema')}"]
+    for key, value in baseline["config"].items():
+        if candidate["config"].get(key) != value:
+            return [f"config mismatch — reports are not comparable: "
+                    f"baseline {baseline['config']} "
+                    f"vs candidate {candidate['config']}"]
+
+    failures: List[str] = []
+    cand_cells = {c["backend"]: c for c in candidate["cells"]}
+    for base_cell in baseline["cells"]:
+        backend = base_cell["backend"]
+        cell = cand_cells.get(backend)
+        if cell is None:
+            failures.append(f"backend missing from candidate: {backend}")
+            continue
+        if cell["n_executables"] > base_cell["n_executables"]:
+            failures.append(
+                f"{backend} executable count grew: "
+                f"{base_cell['n_executables']} -> "
+                f"{cell['n_executables']}")
+        if rps_rtol is not None:
+            base_v, cand_v = (base_cell["rounds_per_sec"],
+                              cell["rounds_per_sec"])
+            if cand_v < base_v * (1 - rps_rtol):
+                failures.append(
+                    f"{backend} rounds/sec fell beyond -{rps_rtol:.0%}: "
+                    f"{base_v:.0f} -> {cand_v:.0f}")
+    base_ratio = baseline.get("headline", {}).get("fused_speedup")
+    cand_ratio = candidate.get("headline", {}).get("fused_speedup")
+    if base_ratio is not None:
+        if cand_ratio is None:
+            failures.append("fused_speedup headline missing from "
+                            "candidate")
+        elif cand_ratio < base_ratio * (1 - speedup_rtol):
+            failures.append(
+                f"fused speedup fell beyond -{speedup_rtol:.0%}: "
+                f"{base_ratio:.3f}x -> {cand_ratio:.3f}x "
+                "(the fused torch probe path lost its win over "
+                "torch_unfused)")
+    return failures
+
+
+def _serving_cell_key(cell: dict) -> tuple:
+    # pre-batching (schema 1) cells carry no "slots" key: B=1
+    return (cell["shards"], cell["mix"], cell["policy"],
+            cell.get("slots", 1))
+
+
+#: Absolute floor on the batched modeled-throughput ratio (B=max vs
+#: B=1 requests per kcycle): the batched-admission acceptance bar.
+BATCHED_SPEEDUP_FLOOR = 1.5
+
+
+def compare_serving(baseline: dict, candidate: dict, *,
+                    hit_rtol: float = 0.005,
+                    latency_rtol: Optional[float] = None,
+                    batched_rtol: float = 0.15,
+                    wall_rtol: Optional[float] = None) -> List[str]:
+    """Regression gate for ``launch/serving_scale.py`` reports
+    (``kind == "serving"``); returns human-readable failure strings.
+
+    The engine is integer-deterministic on a seeded stream, so per
+    (shards x mix x policy x slots) cell the **probe-message and request
+    counts gate exactly** and the **hit rate** within ``hit_rtol`` (the
+    tolerance absorbs only the float division). Cells without a
+    ``slots`` key (schema-1 baselines) compare as ``slots=1``. Modeled
+    p99 latency is gated only when ``latency_rtol`` is given.
+
+    The ``batched_model_speedup`` headline (worst-cell modeled
+    requests-per-kcycle ratio, B=max vs B=1) gates **one-sided**: it
+    must clear both :data:`BATCHED_SPEEDUP_FLOOR` and ``baseline * (1 -
+    batched_rtol)``. The wall-clock ``batched_wall_speedup`` is gated
+    only when ``wall_rtol`` is given; per-cell wall throughput never is.
+    Also fails on kind/config mismatch (the config's ``probe_backend``
+    included, the baseline's read through :data:`REFERENCE_BACKENDS`),
+    schema downgrade and missing cells.
+    """
+    for rep, who in ((baseline, "baseline"), (candidate, "candidate")):
+        if rep.get("kind") != "serving":
+            return [f"{who} is not a serving report "
+                    f"(kind={rep.get('kind')!r})"]
+    baseline = _port_names(baseline)
+    if candidate.get("schema", 0) < baseline.get("schema", 0):
+        return [f"schema downgrade: baseline {baseline.get('schema')} "
+                f"vs candidate {candidate.get('schema')}"]
+    for key, value in baseline["config"].items():
+        if candidate["config"].get(key) != value:
+            return [f"config mismatch — reports are not comparable: "
+                    f"baseline {baseline['config']} "
+                    f"vs candidate {candidate['config']}"]
+
+    failures: List[str] = []
+    cand_cells = {_serving_cell_key(c): c for c in candidate["cells"]}
+    for base_cell in baseline["cells"]:
+        key = _serving_cell_key(base_cell)
+        cell = cand_cells.get(key)
+        if cell is None:
+            failures.append(f"serving cell missing from candidate: {key}")
+            continue
+        if cell["probe_messages"] != base_cell["probe_messages"]:
+            failures.append(
+                f"probe-message count changed at {key}: "
+                f"{base_cell['probe_messages']} -> "
+                f"{cell['probe_messages']} (directory/probe accounting "
+                "drifted — the stream is seeded, this must be exact)")
+        if cell["requests"] != base_cell["requests"]:
+            failures.append(
+                f"request count changed at {key}: "
+                f"{base_cell['requests']} -> {cell['requests']} "
+                "(stream generation drifted under an identical config)")
+        base_v, cand_v = base_cell["hit_rate"], cell["hit_rate"]
+        drift = abs(cand_v - base_v) / max(abs(base_v), 1e-9)
+        if drift > hit_rtol:
+            failures.append(
+                f"hit-rate drift {drift:+.2%} beyond ±{hit_rtol:.1%} "
+                f"at {key}: {base_v:.4f} -> {cand_v:.4f}")
+        if latency_rtol is not None:
+            base_v, cand_v = base_cell["p99_latency"], cell["p99_latency"]
+            drift = abs(cand_v - base_v) / max(abs(base_v), 1e-9)
+            if drift > latency_rtol:
+                failures.append(
+                    f"p99-latency drift {drift:+.2%} beyond "
+                    f"±{latency_rtol:.0%} at {key}: "
+                    f"{base_v:.1f} -> {cand_v:.1f}")
+
+    base_head = baseline.get("headline", {})
+    cand_head = candidate.get("headline", {})
+    base_ratio = base_head.get("batched_model_speedup")
+    if base_ratio is not None:
+        cand_ratio = cand_head.get("batched_model_speedup")
+        if cand_ratio is None:
+            failures.append("batched_model_speedup headline missing "
+                            "from candidate")
+        else:
+            floor = max(BATCHED_SPEEDUP_FLOOR,
+                        base_ratio * (1 - batched_rtol))
+            if cand_ratio < floor:
+                failures.append(
+                    f"batched modeled speedup fell below "
+                    f"{floor:.3f}x (abs floor "
+                    f"{BATCHED_SPEEDUP_FLOOR}x, baseline "
+                    f"{base_ratio:.3f}x -{batched_rtol:.0%}): "
+                    f"{cand_ratio:.3f}x at "
+                    f"B={cand_head.get('batched_slots')} "
+                    "(batched admission stopped amortizing rounds)")
+        if wall_rtol is not None:
+            base_w = base_head.get("batched_wall_speedup")
+            cand_w = cand_head.get("batched_wall_speedup")
+            if base_w is not None and cand_w is not None \
+                    and cand_w < base_w * (1 - wall_rtol):
+                failures.append(
+                    f"batched wall speedup fell beyond "
+                    f"-{wall_rtol:.0%}: {base_w:.3f}x -> "
+                    f"{cand_w:.3f}x")
     return failures

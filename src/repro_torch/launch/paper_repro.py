@@ -42,6 +42,20 @@ def parse_archs(spec: str) -> tuple:
     return tuple(dict.fromkeys(list(PAPER_ARCHITECTURES) + extra))
 
 
+def run_paper_suite(archs, kernels_per_app=None, rounds=None, device=None):
+    """``run_suite`` one architecture at a time; returns the merged
+    ``{app: {arch: AppResult}}`` suite and each architecture's wall (s)."""
+    suite, walls = {}, {}
+    for arch in archs:
+        t0 = time.perf_counter()
+        part = run_suite(archs=(arch,), kernels_per_app=kernels_per_app,
+                         rounds=rounds, device=device)
+        walls[arch] = time.perf_counter() - t0
+        for app, cells in part.items():
+            suite.setdefault(app, {}).update(cells)
+    return suite, walls
+
+
 def main(argv: Optional[List[str]] = None) -> Dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", type=int, default=0,
@@ -56,15 +70,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     device = resolve_device(args.device)
     archs = parse_archs(args.archs)
 
-    suite, walls = {}, {}
-    for arch in archs:
-        t0 = time.perf_counter()
-        part = run_suite(archs=(arch,), kernels_per_app=args.kernels or None,
-                         rounds=args.rounds, device=device)
-        walls[arch] = time.perf_counter() - t0
-        for app, cells in part.items():
-            suite.setdefault(app, {}).update(cells)
-
+    suite, walls = run_paper_suite(archs, args.kernels or None, args.rounds,
+                                   device)
     rows = figures.paper_rows(suite)
     if len(archs) > len(PAPER_ARCHITECTURES):
         rows += figures.zoo_table(suite)

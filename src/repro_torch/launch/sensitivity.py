@@ -30,6 +30,21 @@ from repro_torch.core.noc import PAPER_NOCS
 from repro_torch.core.simulator import resolve_device
 
 
+def build_report(path: str, *, rounds, mix_run, mix_s, device,
+                 kernels_per_app=1):
+    """Build the schema-3 report on ``mix_run``, with ``mix_s`` (the mix
+    grid's wall) and the report's own wall in its manifest, and write it
+    to ``path`` (and its .md); returns (report, markdown path)."""
+    t0 = time.perf_counter()
+    rep = report.run_sensitivity(
+        kernels_per_app=kernels_per_app, rounds=rounds,
+        mix_pairings=report.MIX_PAIRINGS, mix_run=mix_run,
+        noc_models=PAPER_NOCS, device=device)
+    rep["manifest"]["phases_wall_s"].update(
+        mix_grid=round(mix_s, 6), report=round(time.perf_counter() - t0, 6))
+    return rep, report.write_report(path, rep)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=None,
@@ -47,18 +62,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     mix_s = time.perf_counter() - t0
     for name, derived in figures.mix_fairness(mix_run):
         print(f"{name},{derived}")
-    t0 = time.perf_counter()
-    rep = report.run_sensitivity(
-        kernels_per_app=1, rounds=args.rounds,
-        mix_pairings=report.MIX_PAIRINGS, mix_run=mix_run,
-        noc_models=PAPER_NOCS, device=device)
+    rep, md_path = build_report(args.report_json, rounds=args.rounds,
+                                mix_run=mix_run, device=device, mix_s=mix_s)
     man = rep["manifest"]
-    man["phases_wall_s"].update(mix_grid=round(mix_s, 6), report=round(
-        time.perf_counter() - t0, 6))
-    md_path = report.write_report(args.report_json, rep)
     print(f"sensitivity report: {args.report_json} + {md_path} "
           f"(mix grid {mix_s:.2f} s, solo and NoC sections "
-          f"{time.perf_counter() - t0:.2f} s, device {device})")
+          f"{man['phases_wall_s']['report']:.2f} s, device {device})")
     print(f"manifest: {man['device_name']} ({man['power_limit']}), torch "
           f"{man['torch_version']}, git {man['git_sha']}")
     for section, sec in (("solo", rep), ("mix", rep["mix"]),

@@ -83,7 +83,7 @@ import torch
 
 from repro_torch.core.geometry import GpuGeometry
 from repro_torch.core.noc import NocTraffic, get_noc, init_noc_state
-from repro_torch.core.probe import PROBE_BACKENDS, resolve_probe_backend
+from repro_torch.core.probe import resolve_probe_backend
 from repro_torch.core.simulator import resolve_device
 from repro_torch.core.telemetry import (TelemetryConfig, hist_quantile,
                                         serving_hist_bins)
@@ -92,10 +92,11 @@ from repro_torch.kernels.ata_tag_probe import ata_tag_probe
 SERVING_POLICIES = ("private", "broadcast", "ata")
 
 #: Directory-probe backends: ``torch`` (plain gather/compare, the
-#: reference's ``lax`` path) and ``cuda`` (the ``ata_tag_probe`` kernel).
+#: reference's ``lax`` path) and ``cuda`` (the ``ata_tag_probe`` kernel),
+#: the fused lowerings only, as the reference's engine takes.
 #: ``None`` picks the device's default, as in
 #: :func:`repro_torch.core.probe.resolve_probe_backend`.
-SERVING_PROBE_BACKENDS = PROBE_BACKENDS
+SERVING_PROBE_BACKENDS = ("torch", "cuda")
 
 #: Sub-rounds per chunk: the host reads the device once per chunk (a
 #: whole number of admission rounds: ``(512 // B) * B`` sub-rounds).

@@ -146,3 +146,79 @@ def test_l1_stage_matches_reference(geom_name, arch):
             assert getattr(got, name, None) is None, name
         else:
             _eq(getattr(got, name)[0], w, name)
+
+
+# ---------------------------------------------------------------------------
+# the unfused chain: the reference's ``lax_unfused``
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("pre", [False, True], ids=["plain", "pre_served"])
+@pytest.mark.parametrize("replacement", ["LRU", "FIFO"])
+@pytest.mark.parametrize("geom_name", sorted(GEOMS))
+def test_torch_unfused_matches_reference_lax_unfused(geom_name, replacement,
+                                                     pre):
+    from repro.core.tagarray import ReplacementPolicy as RefPolicy
+    from repro_torch.core.tagarray import ReplacementPolicy
+    geom, trace, l1 = _mid_run(geom_name)
+    state = convert.tag_state(l1, device="cpu")
+    ref_probe = jax.jit(functools.partial(
+        ref_fused, geom, replacement=RefPolicy[replacement],
+        backend="lax_unfused"))
+    dead_differs = False
+    for t in range(WARM_ROUNDS, WARM_ROUNDS + PROBE_ROUNDS):
+        g, ref_reqs, port_reqs = _both_requests(geom, trace, t)
+        served = (np.random.default_rng(t).random(port_reqs.addr.shape[1])
+                  < 0.3) if pre else None
+        want = ref_probe({k: jnp.asarray(v) for k, v in l1.items()},
+                         ref_reqs, pre_served=None if served is None
+                         else jnp.asarray(served))
+        kw = dict(pre_served=None if served is None
+                  else torch.from_numpy(served)[None])
+        got = fused_probe_rank(g, state, port_reqs,
+                               replacement=ReplacementPolicy[replacement],
+                               backend="torch_unfused", **kw)
+        fused = fused_probe_rank(g, state, port_reqs, backend="torch", **kw)
+        for name in want._fields:
+            w = getattr(want, name)
+            assert getattr(got, name).dtype == getattr(fused, name).dtype
+            _eq(getattr(got, name)[0], w, name)       # dead lanes too
+            if name != "touch_way":
+                _eq(getattr(fused, name)[0], w, f"fused {name}")
+        dead = ~np.asarray(want.local_hit)
+        dead_differs |= bool((np.asarray(want.touch_way)[dead]
+                              != fused.touch_way[0].numpy()[dead]).any())
+    assert dead_differs     # the victim probe really ran
+
+
+def test_simulate_bit_equal_across_fused_and_unfused_chains():
+    import json
+    from repro_torch.core import SweepGrid, simulate
+    from repro_torch.core import make_trace as port_make_trace
+    from repro_torch.core import APPS as PORT_APPS
+
+    def as_json(r):
+        d = r._asdict()
+        d["per_app"] = [a._asdict() for a in r.per_app]
+        d["noc"] = r.noc._asdict()
+        return json.dumps(d, sort_keys=True)
+
+    geom = convert.geometry(SMALL)
+    trace = port_make_trace(dataclasses.replace(PORT_APPS["cfd"],
+                                                rounds=160),
+                            n_cores=8, kernel=1)
+    for arch in ("ata", "ata_fifo"):
+        want = simulate(arch, trace, geom, probe_backend="torch",
+                        device="cpu")
+        got = simulate(arch, trace, geom, probe_backend="torch_unfused",
+                       device="cpu")
+        assert as_json(got) == as_json(want), arch
+    grid = SweepGrid(["ata"], [geom], [trace],
+                     probe_backends=["torch", "torch_unfused"])
+    run = grid.run(device="cpu")
+    assert run.report.n_executables == 2      # one pass per backend
+    assert as_json(run.results[0]) == as_json(run.results[1])
+
+
+def test_serving_engine_refuses_the_unfused_chain():
+    from repro_torch.serving import ServingConfig
+    with pytest.raises(ValueError, match="probe_backend must be None or"):
+        ServingConfig(probe_backend="torch_unfused")
