@@ -21,10 +21,13 @@ script then exits non-zero with no result line):
    included), beside the launch floor (a one-element ``fill_``);
    ``flash_attention`` and ``wkv6`` within a tolerance stated per
    dtype (the LM prefill and decode shapes, a window, odd T, f32,
-   ``kv_len=0`` rows, K != V, chained halves, w=-20; ``wkv6``'s 64
+   ``kv_len=0`` rows, the head dims 160 and 256 at stablelm-12b's and
+   recurrentgemma-9b's prefill shapes in bf16 and f32, K != V, chained
+   halves, w=-20; ``wkv6``'s 64
    chained one-step calls equal to one call bit for bit), beside
-   ``scaled_dot_product_attention``'s time, the f32 attention kernel's
-   time and ``wkv6``'s time at T=1 (a decode step);
+   ``scaled_dot_product_attention``'s time (at the qwen3 prefill shape
+   and at both wide-dim shapes), the f32 attention kernel's time and
+   ``wkv6``'s time at T=1 (a decode step);
 3. the 8 pre-refactor goldens (cfd/HS3D x 4 paper architectures,
    192 rounds, kernel 1) through ``simulate`` on the card;
 4. the simulator's main path: ``run_suite()`` over all 10 apps x 53
@@ -96,8 +99,8 @@ script then exits non-zero with no result line):
    equal to phase 7's ``cuda`` replay and its exact p50/p99 to the
    baseline's; (e) ``check_regression`` on both reports. ``ata_probe_rank``
    launches in (b) and (c) counted from 0 and exactly as due;
-10. the serving main path at ``fig_serving_scale.py``'s shape cut to a
-    quarter of its depth: one 16-shard chat+rag stream of about 250,000
+10. the serving main path at ``fig_serving_scale.py``'s shape cut to an
+    eighth of its depth: one 16-shard chat+rag stream of about 125,000
     requests replayed under ``ata`` at B=4, with the launch counters
     zeroed just before and read just after, and a profile of 64
     sub-rounds;
@@ -111,10 +114,20 @@ script then exits non-zero with no result line):
     WKV6 outputs that differ from the exact ones;
 13. ``ModelServer`` at the reference launcher's defaults cut to half its
     requests (8 requests, 4 shards, block 16, 8 decode steps, ``ata``)
-    for both models, launch
+    for both models at full width and a quarter of their depth, launch
     counters zeroed just before and read just after: the directory's
     stats against ``run_workload``, and one request served cold and warm;
-14. the per-phase times, the card line again, a ``kernels`` JSON line,
+14. the LM substrate's other eight families (``LM_FAMILIES``: four
+    dense configs, two MoE, the RG-LRU hybrid, the encoder-decoder) at
+    full width, depth cut where the card or the time limit forces it:
+    prefill ``forward`` at B=1, T=4096 on the bf16 "kernel" route, launch
+    counters zeroed just before and read just after (flash_attention
+    exactly once per attention call), held against the bf16 and f32
+    "ref" routes, the f32 "kernel" route against the f32 "ref" route;
+    f32 decode against forward; ``ModelServer`` on the MoE and hybrid
+    models, two requests sharing a prefix, tokens equal to a plain
+    ``decode_step`` chain's; the RG-LRU scan's time at T=4096;
+15. the per-phase times, the card line again, a ``kernels`` JSON line,
     and as the last line ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke_report.json``.
@@ -720,18 +733,23 @@ def phase_suite(device) -> dict:
     log_rows("Table I (high-locality apps)", rows["table1"])
     _SUITE.update(suite)
 
-    # the plain probe backend on the card: bit-equal SimResults
+    # the two probe backends on the card: bit-equal SimResults, at the
+    # zoo phase's cut rounds (a round's wall is host dispatch, whatever
+    # the number of kernels: the rounds set the time)
     t0 = time.perf_counter()
-    plain = run_suite(archs=("ata",), probe_backend="torch", device=device)
+    runs = [run_suite(archs=("ata",), rounds=ZOO_BACKEND_ROUNDS,
+                      probe_backend=b, device=device)
+            for b in ("cuda", "torch")]
     torch.cuda.synchronize()
     wall["ata_plain_probe"] = time.perf_counter() - t0
     for app in suite:
-        a = [tuple(r) for r in suite[app]["ata"].per_kernel]
-        b = [tuple(r) for r in plain[app]["ata"].per_kernel]
+        a, b = ([tuple(r) for r in run[app]["ata"].per_kernel]
+                for run in runs)
         if a != b:
             raise AssertionError(f"{app}: cuda and torch probe backends "
                                  "disagree")
-    log(f"ata with probe_backend='torch': bit-equal over 53 kernels "
+    log(f"ata with probe_backend='torch' and 'cuda': bit-equal over 53 "
+        f"kernels at {ZOO_BACKEND_ROUNDS} rounds "
         f"({wall['ata_plain_probe']:.3f} s)")
 
     # kernel 0 of every app against the stored reference results
@@ -1670,12 +1688,12 @@ def phase_bench(device) -> dict:
 # ---------------------------------------------------------------------------
 SCALE_SHARDS = 16
 SCALE_MIX = ("chat", "rag")
-#: fig_serving_scale.DEFAULT_REQUESTS is 1,000,000; the replay is cut to a
-#: quarter of that depth. The 1M replay took 217-238 s on one H100; with
-#: it the whole script, LM path included, would take ~815 s on the
-#: fastest host measured and ~1,040 s on the slowest, too near its
-#: 1,200 s limit; at a quarter it took 823 s on the slowest (PERF.md §4)
-SCALE_REQUESTS = 250_000
+#: fig_serving_scale.DEFAULT_REQUESTS is 1,000,000; the replay is cut to
+#: an eighth of that depth. The 1M replay took 217-238 s on one H100; a
+#: quarter took 78-91 s, and with it and the other LM families the whole
+#: script's phases took 1,332 s on a slow host, over its 1,200 s limit
+#: (PERF.md §5)
+SCALE_REQUESTS = 125_000
 SCALE_SLOTS = 4
 #: rounds of the scale stream; None: calibrated as fig_serving_scale.py
 #: does, so the stream carries at least SCALE_REQUESTS requests
@@ -1865,7 +1883,21 @@ ATTN_CASES = {
     "odd_T": (2, 4, 2, 193, 193, 64, "float32", True, None, None),
     "f32": (1, 16, 8, 1024, 1024, 128, "float32", True, None, None),
     "kv_len_0": (3, 4, 2, 16, 64, 32, "float32", False, None, (0, 10, 64)),
+    # the wide head dims at their models' prefill shapes: stablelm-12b's
+    # 160 (padded to three 128-byte boxes) and recurrentgemma-9b's 256
+    # (MQA, window 2048, a 2-stage ring), on both kernels
+    "stablelm_prefill": (1, 32, 8, LM_SEQ, LM_SEQ, 160, "bfloat16", True,
+                         None, None),
+    "recurrentgemma_prefill": (1, 16, 1, LM_SEQ, LM_SEQ, 256, "bfloat16",
+                               True, 2048, None),
+    "stablelm_f32": (1, 32, 8, LM_SEQ, LM_SEQ, 160, "float32", True, None,
+                     None),
+    "recurrentgemma_f32": (1, 16, 1, LM_SEQ, LM_SEQ, 256, "float32", True,
+                           2048, None),
 }
+#: the wide-dim cases timed beside SDPA, as (case, f32 case)
+WIDE_CASES = {"stablelm_prefill": "stablelm_f32",
+              "recurrentgemma_prefill": "recurrentgemma_f32"}
 
 
 def phase_flash_attention(device) -> dict:
@@ -1946,7 +1978,70 @@ def phase_flash_attention(device) -> dict:
         f"TFLOP/s); plain {t['plain_ms_runs']} ms; SDPA "
         f"{t['library_ms_runs']} ms; bound {bound_ms:.5f} ms ({bound_by}: "
         f"{nbytes} B, {ops:.4g} flops over {pairs} visible pairs)")
+    t["wide"] = {name: time_wide_dim(name, f32, device)
+                 for name, f32 in WIDE_CASES.items()}
     return {"max_abs_err": worst, "cases": cases, "timing": t}
+
+
+def time_wide_dim(name, f32_name, device) -> dict:
+    """Device time of the bf16 kernel at a wide-dim case's shape beside
+    its bound, the plain version and SDPA; the f32 kernel at the same
+    shape. SDPA takes no window argument: a window goes to it as a
+    boolean mask, which leaves its flash backend for the memory-efficient
+    one; its causal call without the window, which does about twice the
+    work at T = 2 x window, is timed beside it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.launch.roofline import (BF16_OPS_PER_S, FP32_OPS_PER_S,
+                                             attention_traffic, bound,
+                                             visible_pairs)
+    B, Hq, Hkv, Tq, Tk, D, _, causal, window, kv_len = ATTN_CASES[name]
+    q, k, v = attn_inputs(B, Hq, Hkv, Tq, Tk, D, torch.bfloat16, device, 1)
+    kernel = lambda: fmod.flash_attention(  # noqa: E731
+        q, k, v, causal=causal, window=window)
+    plain = lambda: fmod.flash_attention_plain(  # noqa: E731
+        q, k, v, causal=causal, window=window)
+    causal_sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True, enable_gqa=True)
+    if window is None:
+        library = causal_sdpa
+    else:
+        i = torch.arange(Tq, device=device)[:, None] + (Tk - Tq)
+        j = torch.arange(Tk, device=device)[None, :]
+        mask = (j <= i) & (j > i - window)
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=mask, enable_gqa=True)
+    check_close(kernel(), library(), SDPA_TOL,
+                f"flash_attention {name} vs scaled_dot_product_attention")
+    pairs = visible_pairs(B, Hq, Tq, Tk, causal, window, kv_len)
+    nbytes, ops = attention_traffic(B, Hq, Hkv, Tq, Tk, D, 2, pairs)
+    bound_ms, bound_by = bound(nbytes, ops, BF16_OPS_PER_S)
+    t = {"shape": [B, Hq, Hkv, Tq, Tk, D], "window": window,
+         "device_ms": kernel_device_ms(kernel, "attn_bf16_kernel", n=10),
+         "call_ms": time_ms(kernel, n=20, warm=2),
+         "plain_ms": time_ms(plain, n=3, warm=1),
+         "library_ms": time_ms(library, n=20, warm=3),
+         "library_causal_ms": time_ms(causal_sdpa, n=20, warm=3),
+         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+         "ops": ops, "pairs": pairs}
+    t["tflops"] = ops / ((t["device_ms"] or t["call_ms"]) * 1e-3) / 1e12
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    f32 = lambda: fmod.flash_attention(  # noqa: E731
+        q32, k32, v32, causal=causal, window=window)
+    t["f32"] = {"device_ms": kernel_device_ms(f32, "attn_f32_kernel", n=3),
+                "bound_ms": bound(*attention_traffic(
+                    B, Hq, Hkv, Tq, Tk, D, 4, pairs), FP32_OPS_PER_S)[0]}
+    log(f"flash_attention {name} {t['shape']} window {window}: kernel "
+        f"{t['device_ms']} ms on the device ({t['tflops']:.1f} TFLOP/s), "
+        f"bound {bound_ms:.5f} ms ({bound_by}: {ops:.4g} flops over {pairs} "
+        f"visible pairs); plain {t['plain_ms']:.3f} ms; SDPA "
+        f"{t['library_ms']:.4f} ms"
+        + ("" if window is None else " (window as a boolean mask; causal "
+           f"without the window {t['library_causal_ms']:.4f} ms)")
+        + f"; f32 kernel {t['f32']['device_ms']} ms (bound "
+        f"{t['f32']['bound_ms']:.4f} ms)")
+    return t
 
 
 def wkv6_inputs(B, H, T, K, V, device, seed, *, decay=None):
@@ -2358,11 +2453,34 @@ SERVE_STATS = ("local_hits", "remote_hits", "recomputed_blocks",
                "directory_sync_entries")
 
 
+#: ModelServer's models: full width, a quarter of the depth (7 of
+#: qwen3-0.6b's 28 layers, 8 of rwkv6-3b's 32). Decode is host-bound at
+#: ~50-73 ms a token, and 8 requests at full depth took 169-232 s of
+#: the script's 1,200 s (PERF.md section 5); what the phase checks (the
+#: directory's stats, warm == cold) does not depend on the depth
+LM_SERVE_DEPTH = {"qwen3-0.6b": 7, "rwkv6-3b": 8}
+
+
+def serve_model(arch, device):
+    """The served bf16 model at LM_SERVE_DEPTH, weights made on the card
+    from the arch's seed."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config(arch),
+                              n_layers=LM_SERVE_DEPTH[arch])
+    gen = torch.Generator(device=device).manual_seed(LM_SEEDS[arch])
+    params = T.init_params(cfg, generator=gen, device=device)
+    return cfg, T.cast_for_compute(params, cfg)
+
+
 def phase_lm_serve(device) -> dict:
     """``ModelServer`` at the reference launcher's defaults cut to half
     its 16 synthetic requests (8 requests, 4 shards, block 16, 8 decode
-    steps, ``ata``) for both models; the directory's stats against ``run_workload``; one request
-    served cold and then warm."""
+    steps, ``ata``) for both models at a quarter of their depth
+    (``LM_SERVE_DEPTH``); the directory's stats against
+    ``run_workload``; one request served cold and then warm."""
     import torch
     from repro_torch.launch.serve import ModelServer
     from repro_torch.serving.ref import (AtaCacheConfig, AtaPrefixCache,
@@ -2373,7 +2491,7 @@ def phase_lm_serve(device) -> dict:
     acfg = AtaCacheConfig(n_shards=shards, block_tokens=16)
     out = {}
     for arch in LM_ARCHS:
-        cfg, _, params = lm_model(arch, device)
+        cfg, params = serve_model(arch, device)
         reqs = synth_requests(n_req, n_shards=shards, vocab=cfg.vocab_size,
                               shared_frac=0.7)
         ata = AtaPrefixCache(acfg, "ata")
@@ -2415,9 +2533,10 @@ def phase_lm_serve(device) -> dict:
         if m["reused_blocks"] != len(toks) // 16 or warm != cold:
             raise AssertionError(f"{arch} serve: warm {warm} (reused "
                                  f"{m['reused_blocks']}) != cold {cold}")
-        del solo, srv
+        del solo, srv, params
         torch.cuda.empty_cache()
-        out[arch] = {"requests": n_req, "wall_s": wall,
+        out[arch] = {"requests": n_req, "n_layers": cfg.n_layers,
+                     "wall_s": wall,
                      "wall_s_per_request": wall / n_req,
                      "decode_steps": decode_calls,
                      "decode_tokens_per_s": decode_calls / wall,
@@ -2426,12 +2545,316 @@ def phase_lm_serve(device) -> dict:
                                           for m in metrics),
                      "launches": counts, "hit_rate": want.hit_rate,
                      "warm_equals_cold": True}
-        log(f"{arch} serve: {n_req} requests in {wall:.2f} s "
+        log(f"{arch} serve ({cfg.n_layers} layers): {n_req} requests in "
+            f"{wall:.2f} s "
             f"({wall / n_req * 1e3:.1f} ms per request), {decode_calls} "
             f"decode steps ({decode_calls / wall:.1f} per s: {prefill} "
             f"teacher-forced + {n_req * steps} generated); launches {counts};"
             f" stats == run_workload (hit rate {want.hit_rate:.3f}); warm == "
             "cold")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the other LM families at full width
+# ---------------------------------------------------------------------------
+#: the eight architectures of the LM substrate beyond phases 11-13's, in
+#: the reference's order, each with its depth here (None: full depth).
+#: The widths are the configs'; the depth is cut where f32 master weights
+#: and a T = 4096 prefill's f32 "ref" route do not fit the card or the
+#: script's time (chameleon-34b is 137 GB in f32 at full depth): two
+#: layers, and recurrentgemma-9b one (rglru, rglru, local_attn) period
+#: and the 2-layer remainder, so that both its stacks run.
+LM_FAMILIES = {"qwen1.5-4b": 2, "nemotron-4-15b": 2, "stablelm-12b": 2,
+               "granite-moe-3b-a800m": None, "granite-moe-1b-a400m": None,
+               "recurrentgemma-9b": 5, "whisper-tiny": None,
+               "chameleon-34b": 2}
+FAMILY_SEEDS = {arch: 2 + i for i, arch in enumerate(LM_FAMILIES)}
+#: the families served by ModelServer here
+FAMILY_SERVED = ("granite-moe-3b-a800m", "recurrentgemma-9b")
+#: the bf16 "kernel" route's limits, against the f32 "ref" route and
+#: against the bf16 "ref" route: 1.5x the first readings at these seeds
+#: and depths, rounded up to two digits, as phase 11's (PERF.md section
+#: 5; readings vs f32 0.00641, 0.00712, 0.00596, 0.01626, 0.01303,
+#: 0.01050, 0.00780, 0.00583, vs bf16 0.00599, 0.00578, 0.00568, 0.01379,
+#: 0.01144, 0.00606, 0.00776, 0.00568, in LM_FAMILIES' order)
+FAMILY_BF16_VS_F32_TOL = {
+    "qwen1.5-4b": 0.0097, "nemotron-4-15b": 0.011, "stablelm-12b": 0.009,
+    "granite-moe-3b-a800m": 0.025, "granite-moe-1b-a400m": 0.02,
+    "recurrentgemma-9b": 0.016, "whisper-tiny": 0.012,
+    "chameleon-34b": 0.0088}
+FAMILY_BF16_ROUTES_TOL = {
+    "qwen1.5-4b": 0.009, "nemotron-4-15b": 0.0087, "stablelm-12b": 0.0086,
+    "granite-moe-3b-a800m": 0.021, "granite-moe-1b-a400m": 0.018,
+    "recurrentgemma-9b": 0.0091, "whisper-tiny": 0.012,
+    "chameleon-34b": 0.0086}
+
+
+@contextlib.contextmanager
+def moe_routing(decisions: list, replay: bool, flips: list):
+    """Within this block every MoE layer's top-k goes through
+    ``decisions``: recorded there in call order, or (``replay``) taken
+    from there, the gates renormalised from the layer's own router
+    probabilities; ``flips`` gets the count of (token, choice) entries
+    where the layer's own top-k differs. The routes of a MoE model are
+    compared under one routing: an f32 rounding difference between two
+    routes (kernel or plain attention) can swap two experts whose
+    router probabilities tie to 1e-7, and a swap changes whole experts'
+    outputs and, through the capacity slots, which later tokens drop."""
+    import torch
+    from repro_torch.models import moe
+    route = moe._route
+    calls = iter(range(len(decisions)))
+
+    def patched(p, cfg, x):
+        probs, gates, idx = route(p, cfg, x)
+        if not replay:
+            decisions.append(idx)
+            return probs, gates, idx
+        want = decisions[next(calls)]
+        flips.append(int((idx != want).sum()))
+        gates = torch.gather(probs, -1, want)
+        return probs, gates / (gates.sum(-1, keepdim=True) + 1e-9), want
+
+    moe._route = patched
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
+def family_config(arch):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    depth = LM_FAMILIES[arch]
+    return cfg if depth is None else dataclasses.replace(cfg,
+                                                         n_layers=depth)
+
+
+def attention_calls(cfg) -> int:
+    """flash_attention launches of one prefill forward: every attention
+    block of the decoder, and an encoder-decoder's encoder blocks and
+    cross-attentions."""
+    n = sum(b in ("attn", "local_attn") for b in cfg.blocks)
+    return n + (cfg.encoder_layers + cfg.n_layers if cfg.is_enc_dec else 0)
+
+
+def family_inputs(cfg, T, device, seed=0):
+    """Tokens (1, T) and, for an encoder-decoder, frame embeddings (the
+    stub frontend's input). A whisper cell of seq_len T runs T // 2
+    decoder tokens over T // 2 frames (the config's note)."""
+    import torch
+    kw = {}
+    if cfg.is_enc_dec:
+        T //= 2
+        g = torch.Generator(device=device).manual_seed(seed)
+        kw["enc_frames"] = torch.randn((1, T, cfg.d_model), generator=g,
+                                       device=device)
+    return lm_tokens(cfg, T, seed).to(device), kw
+
+
+def scan_ms(cfg, device) -> float:
+    """The RG-LRU scan's time at B=1, T=LM_SEQ, d=d_model (f32, as the
+    block runs it): CUDA events over the doubling scan's launches."""
+    import torch
+    from repro_torch.models.recurrent import _rglru_scan
+    g = torch.Generator(device=device).manual_seed(0)
+    a = torch.rand((1, LM_SEQ, cfg.d_model), generator=g, device=device)
+    gx = torch.randn((1, LM_SEQ, cfg.d_model), generator=g, device=device)
+    return time_ms(lambda: _rglru_scan(a, gx), n=10, warm=2)
+
+
+def serve_family(arch, cfg, params, device) -> dict:
+    """Two requests that share a 48-token prefix, served by two shards of
+    ``ModelServer`` (the second reuses the prefix remotely): each one's
+    tokens against a plain ``decode_step`` chain of the same model from
+    an empty cache (cold, with no reuse). No kernel launches in decode."""
+    import torch
+    from repro_torch.launch.serve import ModelServer
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.ref import AtaCacheConfig, AtaPrefixCache
+    steps, max_len = 8, 512
+    rng = np.random.default_rng(FAMILY_SEEDS[arch])
+    prefix = rng.integers(0, cfg.vocab_size, 48)
+    reqs = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 8)])
+            for _ in range(2)]
+    ata = AtaPrefixCache(AtaCacheConfig(n_shards=2, block_tokens=16), "ata")
+    servers = [ModelServer(cfg, params, ata, s, max_len, device=device)
+               for s in range(2)]
+    torch.cuda.synchronize()
+    reset_lm_counts()
+    t0 = time.perf_counter()
+    served = [servers[i].serve(r, steps) for i, r in enumerate(reqs)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = lm_counts()
+    if counts != {"flash_attention": 0, "wkv6": 0}:
+        raise AssertionError(f"{arch} serve launched {counts}")
+    reused = [m["reused_blocks"] for _, m in served]
+    if reused != [0, 3]:
+        raise AssertionError(f"{arch} serve: reused blocks {reused}, want "
+                             "[0, 3]")
+    for (toks, _), req in zip(served, reqs):
+        cache = T.init_cache(cfg, 1, max_len, device=device)
+        for t in req:
+            _, cache = T.decode_step(params, cfg, torch.tensor(
+                [[int(t)]], dtype=torch.int32, device=device), cache)
+        want, last = [], int(req[-1])
+        for _ in range(steps):
+            lg, cache = T.decode_step(params, cfg, torch.tensor(
+                [[last]], dtype=torch.int32, device=device), cache)
+            last = int(torch.argmax(lg[0, -1]))
+            want.append(last)
+        if toks != want:
+            raise AssertionError(f"{arch} serve: tokens {toks} != the "
+                                 f"decode_step chain's {want}")
+    return {"requests": 2, "wall_s": wall, "reused_blocks": reused,
+            "decode_steps": sum(len(r) + steps for r in reqs) - 48,
+            "tokens_equal_chain": True}
+
+
+def phase_lm_families(device) -> dict:
+    """The LM substrate's other eight families at full width, weights
+    made on the card from fixed seeds, each at its depth of LM_FAMILIES:
+    prefill ``forward`` at B=1, T=LM_SEQ on the bf16 "kernel" route
+    (``cast_for_compute``; launch counters zeroed just before, read just
+    after, flash_attention exactly once per attention call), held
+    against the bf16 "ref" route and the f32 "ref" route, the f32
+    "kernel" route against the f32 "ref" route (F32_ROUTE_TOL), a MoE
+    model's routes under the main path's routing (``moe_routing``); decode
+    against forward in f32 over DECODE_TOKENS teacher-forced tokens
+    (DECODE_REL_TOL; MoE at capacity factor 8, as the reference's own
+    check); ``ModelServer`` on FAMILY_SERVED. Every family is read
+    before a failed check raises."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as T
+    _MODELS.clear()                       # phases 11-13's models
+    torch.cuda.empty_cache()
+    out, failed = {}, []
+    for arch in LM_FAMILIES:
+        t_arch = time.perf_counter()
+        cfg = family_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=device).manual_seed(FAMILY_SEEDS[arch])
+        master = T.init_params(cfg, generator=gen, device=device)
+        served = T.cast_for_compute(master, cfg)
+        torch.cuda.synchronize()
+        weights_gb = torch.cuda.memory_allocated() / 1e9
+        tokens, kw = family_inputs(cfg, LM_SEQ, device)
+        routing = []                   # the main path's MoE decisions
+        with moe_routing(routing, False, []):
+            T.forward(served, cfg, tokens, **kw)              # warm
+        torch.cuda.synchronize()
+        reset_lm_counts()
+        t0 = time.perf_counter()
+        k16, _ = T.forward(served, cfg, tokens, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = lm_counts()
+        want = {"flash_attention": attention_calls(cfg), "wkv6": 0}
+        res = {"n_layers": cfg.n_layers, "seq": tokens.shape[1],
+               "wall_s": wall, "tokens_per_s": tokens.shape[1] / wall,
+               "launches": counts, "weights_gb": weights_gb}
+        if counts != want:
+            failed.append(f"{arch} forward launched {counts}, want {want}")
+        if not bool(torch.isfinite(k16).all()):
+            failed.append(f"{arch}: non-finite logits")
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        flips = {}
+
+        def route(params, c, name):
+            """Another route's forward, under the main path's routing."""
+            flips[name] = []
+            with moe_routing(routing, True, flips[name]):
+                return T.forward(params, c, tokens, **kw)[0]
+        r16 = route(served, dataclasses.replace(cfg, attention_impl="ref"),
+                    "ref_bf16")
+        ref32 = route(master, dataclasses.replace(f32, attention_impl="ref"),
+                      "ref_f32")
+        rel = {"kernel_vs_ref_bf16": rel_err(k16, r16),
+               "kernel_bf16_vs_ref_f32": rel_err(k16, ref32),
+               "ref_bf16_vs_ref_f32": rel_err(r16, ref32)}
+        del k16, r16
+        k32 = route(master, f32, "kernel_f32")
+        rel["kernel_vs_ref_f32"] = rel_err(k32, ref32)
+        del k32, ref32
+        if cfg.is_moe:
+            res["routing_flips"] = {k: sum(v) for k, v in flips.items()}
+            res["routing_entries"] = sum(int(d.numel()) for d in routing)
+        res["prefill_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        res["rel_err"] = rel
+        if not rel["kernel_vs_ref_f32"] <= F32_ROUTE_TOL:
+            failed.append(f"{arch}: f32 kernel vs ref route rel "
+                          f"{rel['kernel_vs_ref_f32']} > {F32_ROUTE_TOL}")
+        lim = {"kernel_bf16_vs_ref_f32": FAMILY_BF16_VS_F32_TOL[arch],
+               "kernel_vs_ref_bf16": FAMILY_BF16_ROUTES_TOL[arch]}
+        for key, tol in lim.items():
+            if not rel[key] <= tol:
+                failed.append(f"{arch}: bf16 kernel route {key} {rel[key]} "
+                              f"> {tol}")
+
+        # decode against forward, f32 (MoE at capacity factor 8)
+        dcfg = dataclasses.replace(f32, capacity_factor=8.0) if cfg.is_moe \
+            else f32
+        dtok, dkw = family_inputs(cfg, 2 * DECODE_TOKENS if cfg.is_enc_dec
+                                  else DECODE_TOKENS, device, seed=1)
+        full, _ = T.forward(master, dcfg, dtok, **dkw)
+        cache = T.init_cache(dcfg, 1, dtok.shape[1] + 8, device=device,
+                             **(dict(dkw, params=master) if cfg.is_enc_dec
+                                else {}))
+        outs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(dtok.shape[1]):
+            lg, cache = T.decode_step(master, dcfg, dtok[:, t:t + 1], cache)
+            outs.append(lg[:, 0])
+        torch.cuda.synchronize()
+        res["decode"] = {
+            "tokens": dtok.shape[1],
+            "rel_err_vs_forward": rel_err(torch.stack(outs, 1), full),
+            "wall_ms_per_token": (time.perf_counter() - t0) * 1e3
+            / dtok.shape[1]}
+        del full, cache, outs
+        if not res["decode"]["rel_err_vs_forward"] < DECODE_REL_TOL:
+            failed.append(f"{arch}: f32 decode vs forward {res['decode']}")
+        if "rglru" in cfg.blocks:
+            res["rglru_scan_ms"] = scan_ms(cfg, device)
+        if arch in FAMILY_SERVED:
+            try:
+                res["serve"] = serve_family(arch, cfg, served, device)
+            except AssertionError as e:
+                failed.append(str(e))
+        del master, served
+        torch.cuda.empty_cache()
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        res["phase_s"] = time.perf_counter() - t_arch
+        out[arch] = res
+        log(f"{arch} ({cfg.n_layers} layers, d={cfg.d_model}): prefill B=1 "
+            f"T={res['seq']} {wall * 1e3:.1f} ms, {res['tokens_per_s']:.0f} "
+            f"tokens/s, launches {counts} (want {want}); kernel vs ref route "
+            f"rel {rel['kernel_vs_ref_f32']:.3g} in f32 (tol "
+            f"{F32_ROUTE_TOL}), {rel['kernel_vs_ref_bf16']:.3g} in bf16 (tol "
+            f"{lim['kernel_vs_ref_bf16']}); bf16 vs f32 ref route: kernel "
+            f"{rel['kernel_bf16_vs_ref_f32']:.3g} (tol "
+            f"{lim['kernel_bf16_vs_ref_f32']}), ref "
+            f"{rel['ref_bf16_vs_ref_f32']:.3g}; f32 decode vs forward rel "
+            f"{res['decode']['rel_err_vs_forward']:.3g} over "
+            f"{res['decode']['tokens']} tokens (tol {DECODE_REL_TOL}), "
+            f"{res['decode']['wall_ms_per_token']:.2f} ms per token; weights "
+            f"{weights_gb:.2f} GB, prefill peak {res['prefill_peak_gb']:.2f} "
+            f"GB; {res['phase_s']:.1f} s"
+            + (f"; top-k entries of the other routes unlike the main path's "
+               f"(of {res['routing_entries']}, compared under its routing): "
+               f"{res['routing_flips']}" if cfg.is_moe else "")
+            + (f"; RG-LRU scan at T={LM_SEQ}: {res['rglru_scan_ms']:.3f} ms"
+               if "rglru_scan_ms" in res else "")
+            + (f"; serve: 2 requests in {res['serve']['wall_s']:.2f} s, "
+               f"reused {res['serve']['reused_blocks']}, tokens == the "
+               "decode_step chain" if "serve" in res else ""))
+    if failed:
+        raise AssertionError("; ".join(failed))
     return out
 
 
@@ -2472,7 +2895,8 @@ def main() -> int:
                      ("serving_scale", lambda: phase_serving_scale(device)),
                      ("lm_prefill", lambda: phase_lm_prefill(device)),
                      ("lm_decode", lambda: phase_lm_decode(device)),
-                     ("lm_serve", lambda: phase_lm_serve(device))):
+                     ("lm_serve", lambda: phase_lm_serve(device)),
+                     ("lm_families", lambda: phase_lm_families(device))):
         t0 = time.perf_counter()
         try:
             report[name] = fn()
@@ -2529,13 +2953,20 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:28",
-        "launches": report["lm_prefill"]["qwen3-0.6b"]["launches"][
-            "flash_attention"],
+        # qwen3's prefill and the other families' bf16 prefills, each
+        # counted from 0
+        "launches": (report["lm_prefill"]["qwen3-0.6b"]["launches"][
+            "flash_attention"] + sum(
+                r["launches"]["flash_attention"]
+                for r in report["lm_families"].values())),
         "max_abs_err": report["flash_attention"]["max_abs_err"],
         "ms": t["device_ms"] if t["device_ms"] is not None else t["call_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "f32_ms": t["f32"]["device_ms"],
+        "wide_dims": {name: {k: w[k] for k in (
+            "shape", "window", "device_ms", "bound_ms", "bound_by",
+            "plain_ms", "library_ms")} for name, w in t["wide"].items()},
     })
     t = report["wkv6"]["timing"]
     kernels.append({

@@ -1,0 +1,17 @@
+"""granite-moe-1b-a400m [moe] — 24L d=1024 16H (GQA kv=8) per-expert
+d_ff=512, vocab=49155, 32 experts top-8
+[hf:ibm-granite/granite-3.0-1b-a400m-base; hf]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-moe-1b-a400m", family="moe", n_layers=24, d_model=1024,
+    n_heads=16, n_kv_heads=8, head_dim=64, d_ff=512, vocab_size=49155,
+    n_experts=32, moe_top_k=8, activation="silu_glu")
+
+
+def smoke():
+    return ModelConfig(
+        name="granite1b-smoke", family="moe", n_layers=2, d_model=64,
+        n_heads=4, n_kv_heads=2, head_dim=16, d_ff=32, vocab_size=512,
+        n_experts=4, moe_top_k=2, dtype="float32", remat="none",
+        attn_chunk=32)

@@ -105,7 +105,8 @@ def params(ref_params, cfg: ModelConfig, *, device
 
     Each stacked leaf of ``params["layers"]`` is split along its leading
     period axis onto the layers that run in that period, in the
-    reference's ``sorted(name)`` order. Every reference leaf must land
+    reference's ``sorted(name)`` order; each of ``params["encoder"]``
+    along its layer axis onto ``encoder.<i>``. Every reference leaf must land
     on exactly one port parameter, and every port parameter must be
     filled: a leftover, repeated or missing leaf raises.
     """
@@ -134,6 +135,10 @@ def params(ref_params, cfg: ModelConfig, *, device
             for g in range(a.shape[0]):
                 i = index[(stack, path[1], g)]
                 put(".".join((stack, str(i)) + path[2:]), a[g])
+        elif stack == "encoder":          # stacked {"p0_attn": block}
+            a = np.asarray(leaf)
+            for g in range(a.shape[0]):
+                put(".".join((stack, str(g)) + path[2:]), a[g])
         elif stack == "layers_rem":
             i = index[(stack, path[1], None)]
             put(".".join(("layers", str(i)) + path[2:]), leaf)
@@ -148,13 +153,16 @@ def params(ref_params, cfg: ModelConfig, *, device
 
 def cache(ref_cache, cfg: ModelConfig, *, device) -> transformer.Cache:
     """The reference's decode cache (stacked by period) as the port's
-    list of per-layer dicts, so decode parity can start mid-run."""
-    if "cross" in ref_cache:
-        raise NotImplementedError("the encoder-decoder path is not ported "
-                                  "yet (ROADMAP A19)")
+    list of per-layer dicts, so decode parity can start mid-run. An
+    encoder-decoder's ``cache["cross"][name]`` (k, v stacked by period)
+    becomes each stacked layer's ``cross_k``/``cross_v``."""
+    cross = ref_cache.get("cross", {})
     out = []
     for stack, name, g in transformer.layer_keys(cfg):
-        src = ref_cache[stack][name]
+        src = dict(ref_cache[stack][name])
+        if stack == "layers" and name in cross:
+            src.update(zip(transformer.CROSS_KEYS,
+                           (cross[name]["k"], cross[name]["v"])))
         out.append({k: _tensor(np.asarray(a)[g] if g is not None else a,
                                device) for k, a in src.items()})
     return out

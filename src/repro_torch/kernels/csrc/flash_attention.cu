@@ -19,7 +19,7 @@
 // producer, whose one thread loads the Q tiles once and then the K/V
 // tiles of 64 keys by TMA (128-byte swizzle, tensor maps encoded on the
 // host from the tensors' real strides, so the model's transposed views
-// need no copy) into a ring of kStages stages, each with a full and an
+// need no copy) into a ring of stages, each with a full and an
 // empty mbarrier; warpgroups 1..NC are consumers, one query head each,
 // over the one K/V ring, so a K/V tile is fetched once per head pair.
 // A consumer computes S = Q K^T with wgmma m64n64k16 (both operands in
@@ -37,6 +37,16 @@
 // that). Tiles no row can see are skipped; query tiles run heaviest
 // (last) first; tails are zero-filled by TMA and masked. Rows that see
 // no key come back as zeros.
+//
+// Head dims: D is padded to DP, a whole number of 64-column (128-byte)
+// TMA boxes: 32 -> 64, 64, 128, 160 -> 192, 256. The tensor maps keep
+// D as the row length, so TMA fills the pad with zeros; QK^T stops at
+// the last 16 columns that hold data, and the output store masks to D.
+// The ring holds 3 stages up to DP = 192 and 2 at DP = 256, so that
+// NC = 2 heads of Q and the ring stay within the 227 KB a block may use
+// (192 KB at DP = 192 and at DP = 256). The O accumulator is DP / 2
+// floats a consumer thread (128 at DP = 256): the producer gives up its
+// registers (setmaxnreg) so that the consumers can hold it.
 //
 // f32 (the route checks): attn_f32_kernel, every product in f32 on the
 // CUDA cores, as the TPU kernel. One CTA of 256 threads per (query tile
@@ -226,8 +236,9 @@ __global__ void __launch_bounds__(kThreads) attn_f32_kernel(Args a) {
 
 template <int D>
 int launch_f32(const Args& a, int B, cudaStream_t stream) {
-  const size_t bytes =
+  constexpr size_t bytes =
       sizeof(float) * (D * kLQ + D * kLK + kBK * D + kBQ * kLK);
+  static_assert(bytes <= 232448, "over the block's shared memory");
   cudaError_t err = cudaFuncSetAttribute(
       attn_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
@@ -240,7 +251,8 @@ int launch_f32(const Args& a, int B, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 // bf16: wgmma + TMA
 // ---------------------------------------------------------------------------
-constexpr int kStages = 3;            // K/V ring depth
+// K/V ring depth: 3, or 2 at DP = 256 (shared memory)
+constexpr int stages_for(int DP) { return DP > 192 ? 2 : 3; }
 constexpr int kBox = 64 * 128;        // one TMA box: 64 rows x 128 bytes
 constexpr int kSw = 1024;             // 128-byte swizzle atom: 8 rows
 
@@ -393,6 +405,108 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+    const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+    const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 struct Bf16Args {
   const int32_t* kv_len;  // (B,) or null for Tk
   __nv_bfloat16* o;       // (B, Hq, Tq, D), contiguous
@@ -426,17 +540,19 @@ __device__ __forceinline__ TileRange tile_range(const Bf16Args& a, int b,
   return r;
 }
 
-// Shared memory: Q (NC heads x NB boxes), then kStages x (K, V) of NB
+// Shared memory: Q (NC heads x NB boxes), then ST x (K, V) of NB
 // boxes each, every box 1024-byte aligned for the swizzle, then the
 // barriers.
 template <int DP, int NC>
 struct Smem {
   static constexpr int NB = DP / 64;  // 128-byte boxes per row
+  static constexpr int ST = stages_for(DP);
   static constexpr int q = 0;
   static constexpr int k = q + NC * NB * kBox;
-  static constexpr int v = k + kStages * NB * kBox;
-  static constexpr int bars = v + kStages * NB * kBox;
-  static constexpr int bytes = bars + 8 * (1 + 2 * kStages);
+  static constexpr int v = k + ST * NB * kBox;
+  static constexpr int bars = v + ST * NB * kBox;
+  static constexpr int bytes = bars + 8 * (1 + 2 * ST);
+  static_assert(bytes + kSw <= 232448, "over the block's shared memory");
 };
 
 // grid (Hq / NC, B, query tiles); block 128 * (NC + 1)
@@ -447,6 +563,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
                      const __grid_constant__ CUtensorMap tv, Bf16Args a) {
   using L = Smem<DP, NC>;
   constexpr int NB = L::NB;
+  constexpr int kStages = L::ST;
   constexpr int NO = DP / 2;  // O accumulator floats per thread
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -589,7 +706,13 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t dv = sw128_desc(vs + kk * 16 * 128, kBox, kSw);
-      if constexpr (DP == 128) {
+      if constexpr (DP == 256) {
+        wgmma_rs_n256(o, phi[kk], dv, 1);
+        wgmma_rs_n256(o, plo[kk], dv, 1);
+      } else if constexpr (DP == 192) {
+        wgmma_rs_n192(o, phi[kk], dv, 1);
+        wgmma_rs_n192(o, plo[kk], dv, 1);
+      } else if constexpr (DP == 128) {
         wgmma_rs_n128(o, phi[kk], dv, 1);
         wgmma_rs_n128(o, plo[kk], dv, 1);
       } else {
@@ -690,7 +813,7 @@ int launch_bf16(const CUtensorMap& tq, const CUtensorMap& tk,
 
 // Plain C entry point, loaded with ctypes. Launches on `stream` and
 // returns 0, a CUDA error code, or 10000 + the CUresult of a failed
-// tensor-map encode. D must be 32, 64 or 128; Tq, Hq must be positive
+// tensor-map encode. D must be 32, 64, 128, 160 or 256; Tq, Hq must be positive
 // and Hq a multiple of Hkv. bf16 != 0 selects __nv_bfloat16 for q, k, v
 // and o (the tensor-core kernel; base addresses and the b, h, t strides
 // must be 16-byte multiples, which the wrapper checks), else float.
@@ -710,10 +833,12 @@ extern "C" int flash_attention_launch(
       case 32: return launch_f32<32>(a, B, s);
       case 64: return launch_f32<64>(a, B, s);
       case 128: return launch_f32<128>(a, B, s);
+      case 160: return launch_f32<160>(a, B, s);
+      case 256: return launch_f32<256>(a, B, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  if (D != 32 && D != 64 && D != 128)
+  if (D != 32 && D != 64 && D != 128 && D != 160 && D != 256)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
   int err = encode(&tq, q, D, Tq, Hq, B, sqt, sqh, sqb);
@@ -723,6 +848,12 @@ extern "C" int flash_attention_launch(
   Bf16Args a{kv_len, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Tq, Tk, D,
              causal, window, scale * 1.4426950408889634f};
   const bool pair = (Hq / Hkv) % 2 == 0;
+  if (D == 256)
+    return pair ? launch_bf16<256, 2>(tq, tk, tv, a, B, s)
+                : launch_bf16<256, 1>(tq, tk, tv, a, B, s);
+  if (D == 160)
+    return pair ? launch_bf16<192, 2>(tq, tk, tv, a, B, s)
+                : launch_bf16<192, 1>(tq, tk, tv, a, B, s);
   if (D == 128)
     return pair ? launch_bf16<128, 2>(tq, tk, tv, a, B, s)
                 : launch_bf16<128, 1>(tq, tk, tv, a, B, s);

@@ -23,7 +23,9 @@ keeps the result within one bf16 rounding step of the f32 function.
 The tensor maps are encoded per call from the tensors' real strides, so
 TMA's rules apply: 16-byte aligned base addresses and b/h/t strides that
 are 16-byte multiples; the wrapper raises on anything else and never
-copies. f32 inputs go to a CUDA-core kernel that does every product in
+copies. Head dims 32, 64, 128, 160 and 256 are compiled; the bf16 kernel pads
+D to whole 128-byte TMA boxes (160 to 192) that TMA fills with zeros.
+f32 inputs go to a CUDA-core kernel that does every product in
 f32, as the TPU kernel does. The TPU kernel's ``Tq % bq`` restriction was
 a tiling rule, not semantics: any Tq and Tk work here.
 
@@ -45,8 +47,9 @@ from repro_torch.kernels import build
 #: Kernel launches made by :func:`flash_attention` in this process.
 launches = 0
 
-#: head dims the kernel is compiled for
-HEAD_DIMS = (32, 64, 128)
+#: head dims the kernel is compiled for (160: stablelm-12b; 256:
+#: recurrentgemma-9b)
+HEAD_DIMS = (32, 64, 128, 160, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -7,7 +7,8 @@ teacher-force only the uncached suffix through ``decode_step``, seal a
 cache snapshot into the *local* shard's pool at every block boundary,
 then decode greedily.
 
-Usage (on the CUDA card; ``--device cpu`` for a smoke run without one):
+Usage (on the CUDA card; ``--device cpu`` for a smoke run without one;
+``--arch`` any decoder-only architecture of ``repro_torch.configs``):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --smoke --requests 32 --decode-steps 16 --policy ata
 """
@@ -20,7 +21,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.simulator import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.serving.ref import (AtaCacheConfig, AtaPrefixCache,
@@ -36,10 +37,17 @@ class ModelServer:
 
     The payloads are decode caches; a sealed snapshot and a resumed cache
     are copies, as in the reference, so nothing the directory holds
-    changes under it."""
+    changes under it. It serves decoder-only models: an encoder-decoder
+    (``whisper-tiny``) needs encoder frames for its cache, which a
+    request of tokens does not carry (the reference's server cannot make
+    that cache either); it runs through ``forward`` and ``decode_step``."""
 
     def __init__(self, cfg, params: T.Transformer, ata: AtaPrefixCache,
                  shard: int, max_len: int = 512, *, device="cuda"):
+        if cfg.is_enc_dec:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: ModelServer "
+                             "serves decoder-only models; use forward and "
+                             "decode_step with enc_frames")
         self.device = resolve_device(device)
         if params.embed.table.device.type != self.device.type:
             raise ValueError(f"params are on {params.embed.table.device}, "
@@ -90,7 +98,9 @@ class ModelServer:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    choices=[a for a in ARCH_IDS
+                             if not get_config(a).is_enc_dec])
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--decode-steps", type=int, default=8)

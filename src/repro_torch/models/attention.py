@@ -12,9 +12,11 @@ The port of the reference's ``models/attention.py``. Routes
 Decode never reaches the kernel, as in the reference: one query row
 against the cache is a plain einsum softmax. The cache is rewritten out
 of place each step, as the reference's ``jnp.where`` does, so a cache a
-caller holds never changes under it. The reference's sharding
-annotations and its cross-attention path (encoder-decoder, ROADMAP A19)
-are not ported.
+caller holds never changes under it. Cross-attention (the
+encoder-decoder's) is :func:`attention_forward` with ``kv_x`` (the
+encoder's output), ``causal=False`` and ``rope_on=False``, on parameters
+made with ``cross=True`` (no qk-norm). The reference's sharding
+annotations are not ported.
 """
 from __future__ import annotations
 
@@ -32,9 +34,11 @@ NEG_INF = -1e30
 
 class Attention(nn.Module):
     """Parameters ``wq``, ``wk``, ``wv`` (Dense), ``wo.kernel`` (H, hd, d)
-    and, with ``qk_norm``, ``q_norm``/``k_norm`` (RMSNorm over hd)."""
+    and, with ``qk_norm`` and not ``cross``, ``q_norm``/``k_norm``
+    (RMSNorm over hd)."""
 
-    def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
+    def __init__(self, cfg: ModelConfig, *, cross: bool = False,
+                 generator=None, device=None):
         super().__init__()
         d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         dt = layers.dtype_of(cfg.param_dtype)
@@ -43,24 +47,31 @@ class Attention(nn.Module):
         self.wk = layers.Dense(d, (KV, hd), bias=cfg.qkv_bias, **kw)
         self.wv = layers.Dense(d, (KV, hd), bias=cfg.qkv_bias, **kw)
         self.wo = layers.Dense(H, (hd, d), stddev=(H * hd) ** -0.5, **kw)
-        if cfg.qk_norm:
+        self.qk_norm = cfg.qk_norm and not cross
+        if self.qk_norm:
             self.q_norm = layers.RMSNorm(hd, dt, device)
             self.k_norm = layers.RMSNorm(hd, dt, device)
 
 
-def _project_qkv(p: Attention, cfg: ModelConfig, x, *, positions,
-                 kv_repeat: int = 1):
+def _project_qkv(p: Attention, cfg: ModelConfig, x, kv_x=None, *,
+                 positions=None, rope_on: bool = True, kv_repeat: int = 1):
+    kv_x = x if kv_x is None else kv_x
     q = layers.dense(p.wq, x)                         # (B,T,H,hd)
-    k = layers.dense(p.wk, x)                         # (B,T,KV,hd)
-    v = layers.dense(p.wv, x)
-    if cfg.qk_norm:
+    k = layers.dense(p.wk, kv_x)                      # (B,Tk,KV,hd)
+    v = layers.dense(p.wv, kv_x)
+    if p.qk_norm:
         q = layers.rmsnorm(p.q_norm, q, cfg.norm_eps)
         k = layers.rmsnorm(p.k_norm, k, cfg.norm_eps)
-    # q and k share their positions: the angles are computed once
-    cos, sin = layers.rope_angles(positions, cfg.head_dim // 2,
-                                  cfg.rope_theta, x.device)
-    q = layers.apply_rope(q, cos, sin)
-    k = layers.apply_rope(k, cos, sin)
+    if rope_on and positions is not None:
+        half = cfg.head_dim // 2
+        cos, sin = layers.rope_angles(positions, half, cfg.rope_theta,
+                                      x.device)
+        q = layers.apply_rope(q, cos, sin)
+        if k.shape[1] != q.shape[1]:      # keys at their own positions
+            cos, sin = layers.rope_angles(
+                torch.arange(k.shape[1], device=x.device), half,
+                cfg.rope_theta, x.device)
+        k = layers.apply_rope(k, cos, sin)
     if kv_repeat > 1:
         k = k.repeat_interleave(kv_repeat, dim=2)
         v = v.repeat_interleave(kv_repeat, dim=2)
@@ -133,10 +144,12 @@ def blocked_attention(q, k, v, *, causal: bool, window: Optional[int],
 
 
 def attention_forward(p: Attention, cfg: ModelConfig, x, *, positions,
-                      causal=True, window=None, kv_repeat: int = 1):
-    """Full-sequence attention (prefill): x (B, T, d) -> (B, T, d)."""
-    q, k, v = _project_qkv(p, cfg, x, positions=positions,
-                           kv_repeat=kv_repeat)
+                      kv_x=None, causal=True, window=None, rope_on=True,
+                      kv_repeat: int = 1):
+    """Full-sequence attention (prefill, encoder, cross): x (B, T, d) ->
+    (B, T, d); keys and values from ``kv_x`` (B, Tk, d) when given."""
+    q, k, v = _project_qkv(p, cfg, x, kv_x, positions=positions,
+                           rope_on=rope_on, kv_repeat=kv_repeat)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))     # (B,H,T,hd)
     if cfg.attention_impl == "blocked":
         o = blocked_attention(qt, kt, vt, causal=causal, window=window,
@@ -236,3 +249,15 @@ def attention_decode(p: Attention, cfg: ModelConfig, x, cache: Dict, *,
     o = o.reshape(B, Hq, 1, hd).transpose(1, 2).to(x.dtype)  # (B,1,H,hd)
     new_cache["len"] = new_len
     return _out_proj(p, o), new_cache
+
+
+def cross_attention_decode(p: Attention, cfg: ModelConfig, x, k, v):
+    """One decode row x (B, 1, d) against an encoder-decoder's
+    precomputed cross keys and values (B, KV, Se, hd): the reference's
+    einsum path (no kernel, no rope, no mask)."""
+    q = layers.dense(p.wq, x).transpose(1, 2)               # (B,H,1,hd)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    s = s * cfg.head_dim ** -0.5
+    pr = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", pr.to(v.dtype), v).transpose(1, 2)
+    return _out_proj(p, o)

@@ -1,11 +1,13 @@
-"""Recurrent blocks: RWKV6 (Finch) time-mix.
+"""Recurrent blocks: RWKV6 (Finch) time-mix and RG-LRU (RecurrentGemma).
 
-The port of the RWKV6 half of the reference's ``models/recurrent.py``.
-It decodes in O(1) state: {"shift": (B, d), "wkv": (B, H, K, K) f32}.
-The WKV recurrence goes through ``ops.wkv6``: the "kernel" route takes
-the Hopper kernel's wrapper, "ref" and "blocked" its plain version, as
-the reference maps its routes. RG-LRU (RecurrentGemma) is not ported yet
-(ROADMAP A18).
+The port of the reference's ``models/recurrent.py``. Both decode in O(1)
+state: RWKV6 {"shift": (B, d), "wkv": (B, H, K, K) f32}, RG-LRU {"conv":
+(B, W-1, d), "h": (B, d)} in the compute dtype. The WKV recurrence goes
+through ``ops.wkv6``: the "kernel" route takes the Hopper kernel's
+wrapper, "ref" and "blocked" its plain version, as the reference maps its
+routes. The RG-LRU recurrence has no TPU kernel in the reference (a
+``lax.associative_scan``); here it is a log-depth doubling scan in plain
+PyTorch (:func:`_rglru_scan`).
 """
 from __future__ import annotations
 
@@ -115,3 +117,97 @@ def rwkv6_decode(p: RWKV6, cfg: ModelConfig, x, state
                  ) -> Tuple[torch.Tensor, Dict]:
     """Single-token step, reusing the T=1 forward (O(1) state)."""
     return rwkv6_forward(p, cfg, x, state)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (RecurrentGemma recurrent block)
+# ---------------------------------------------------------------------------
+class RGLRU(nn.Module):
+    """Parameters with the reference's leaf names: Dense ``w_x``,
+    ``w_gate``, ``w_out`` and, with bias, ``wi``, ``wr`` (d, d);
+    ``conv_w`` (W, d), ``conv_b`` (d,), ``lam`` (d,)."""
+
+    #: the causal conv casts its weights to the activations' dtype;
+    #: ``lam`` is used in f32
+    compute_cast = ("conv_w", "conv_b")
+
+    def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
+        super().__init__()
+        d, W = cfg.d_model, cfg.conv_width
+        dt = layers.dtype_of(cfg.param_dtype)
+        kw = dict(dtype=dt, generator=generator, device=device)
+        self.w_x = layers.Dense(d, d, **kw)
+        self.w_gate = layers.Dense(d, d, **kw)
+        self.w_out = layers.Dense(d, d, **kw)
+        self.conv_w = layers.param(layers.truncated_normal(
+            (W, d), W ** -0.5, **kw))
+        self.conv_b = layers.param(torch.zeros((d,), dtype=dt,
+                                               device=device))
+        self.wi = layers.Dense(d, d, bias=True, **kw)
+        self.wr = layers.Dense(d, d, bias=True, **kw)
+        # Lambda param: a = sigmoid(lam) in ~(0.9, 0.999)
+        self.lam = layers.param(torch.linspace(
+            2.2, 6.9, d, device=device).to(dt))
+
+
+def _causal_conv(p: RGLRU, x, conv_state=None):
+    """Per-channel causal conv, width W. x (B,T,d) -> (y, new state
+    (B,W-1,d)), in x's dtype."""
+    W = p.conv_w.shape[0]
+    if conv_state is None:
+        conv_state = torch.zeros((x.shape[0], W - 1, x.shape[-1]),
+                                 dtype=x.dtype, device=x.device)
+    xp = torch.cat([conv_state, x], dim=1)                   # (B,T+W-1,d)
+    w = p.conv_w.to(x.dtype)
+    T = x.shape[1]
+    y = sum(xp[:, i:i + T] * w[i] for i in range(W))
+    y = y + p.conv_b.to(x.dtype)
+    return y, xp[:, -(W - 1):]
+
+
+def _rglru_scan(a, gx):
+    """h_t = a_t * h_{t-1} + gx_t (h_0 = 0) over T (dim 1), as a
+    log-depth doubling scan: after the step of offset o, (a_t, b_t)
+    holds the composition of steps t-2o+1 .. t, so ceil(log2 T)
+    elementwise steps give every prefix. The reference composes the
+    same steps in its associative scan's tree: the adds differ in order,
+    not in what they add."""
+    T = a.shape[1]
+    b = gx
+    o = 1
+    while o < T:
+        b = torch.cat([b[:, :o], b[:, o:] + a[:, o:] * b[:, :-o]], dim=1)
+        if 2 * o < T:
+            a = torch.cat([a[:, :o], a[:, o:] * a[:, :-o]], dim=1)
+        o *= 2
+    return b
+
+
+def rglru_forward(p: RGLRU, cfg: ModelConfig, x, state: Optional[Dict] = None
+                  ) -> Tuple[torch.Tensor, Dict]:
+    """x (B,T,d); state {"conv": (B,W-1,d), "h": (B,d)} or None."""
+    gate = F.gelu(layers.dense(p.w_gate, x), approximate="tanh")
+    xb = layers.dense(p.w_x, x)
+    conv_state = None if state is None else state["conv"]
+    xb, new_conv = _causal_conv(p, xb, conv_state)
+
+    i_t = torch.sigmoid(layers.dense(p.wi, xb).float())
+    r_t = torch.sigmoid(layers.dense(p.wr, xb).float())
+    # a = sigmoid(lam)^(c * r): log a = -c * r * softplus(-lam)
+    log_a = -cfg.lru_c * r_t * F.softplus(-p.lam.float())
+    a_t = torch.exp(log_a)
+    gx = torch.sqrt(torch.clamp_min(1.0 - a_t * a_t, 1e-12)) \
+        * (i_t * xb.float())
+    if state is not None:
+        # fold initial h into the first step: h_1 = a_1 h_0 + gx_1
+        gx = torch.cat([gx[:, :1] + (a_t[:, 0] * state["h"].float())[:, None],
+                        gx[:, 1:]], dim=1)
+    h = _rglru_scan(a_t, gx).to(x.dtype)                      # (B,T,d)
+    y = layers.dense(p.w_out, h * gate)
+    return y, {"conv": new_conv, "h": h[:, -1]}
+
+
+def rglru_decode(p: RGLRU, cfg: ModelConfig, x, state
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """Single-token step, reusing the T=1 forward (O(1) state)."""
+    return rglru_forward(p, cfg, x, state)

@@ -1,27 +1,33 @@
-"""Model assembly: block zoo -> layer stack -> LM.
+"""Model assembly: block zoo -> layer stack -> LM / enc-dec.
 
 The port of the reference's ``models/transformer.py`` for inference.
 Parameters are one :class:`Transformer` module whose parameter names
 carry the reference's leaf names (``embed.table``, ``lm_head.kernel``,
-``layers.<i>.attn.wq.kernel``, ``layers.<i>.rwkv.u``, ...). ``layers``
-holds the blocks in the order they run: the reference stacks them by
-pattern period and runs a period's blocks in ``sorted(name)`` order,
-then the remainder layers, and :func:`layer_keys` names each layer's
-place there (``repro_torch.convert.params`` maps one onto the other).
+``layers.<i>.attn.wq.kernel``, ``layers.<i>.rwkv.u``,
+``layers.<i>.moe.wi.kernel``, ``layers.<i>.rglru.lam``,
+``layers.<i>.xattn.wq.kernel``, ``encoder.<i>.attn.wq.kernel``, ...).
+``layers`` holds the decoder blocks in the order they run: the reference
+stacks them by pattern period and runs a period's blocks in
+``sorted(name)`` order, then the remainder layers, and :func:`layer_keys`
+names each layer's place there (``repro_torch.convert.params`` maps one
+onto the other). ``encoder`` holds an encoder-decoder's encoder blocks.
 A Python loop over layers takes the place of ``lax.scan``; remat has no
 counterpart, because inference needs none.
 
 Public API:
   init_params(cfg, generator=..., device=...)   -> Transformer
   cast_for_compute(params, cfg)                  -> Transformer (serving)
-  forward(params, cfg, tokens)                   -> (logits, aux)
-  init_cache(cfg, batch, max_len, device=...)    -> decode cache
+  encode(params, cfg, enc_frames)                -> encoder output
+  forward(params, cfg, tokens, enc_frames=None)  -> (logits, aux)
+  init_cache(cfg, batch, max_len, device=..., params=, enc_frames=)
+                                                 -> decode cache
   decode_step(params, cfg, tokens, cache)        -> (logits, new cache)
 
-The cache is a list with one dict per layer, in run order; decode_step
-returns a new list and leaves the one it was given as it was. MoE,
-RG-LRU and the encoder-decoder path are not ported yet (ROADMAP A17,
-A18, A19): a config that asks for one raises ``NotImplementedError``.
+The cache is a list with one dict per decoder layer, in run order;
+decode_step returns a new list and leaves the one it was given as it
+was. An encoder-decoder's cache also holds each stacked layer's
+precomputed cross-attention keys and values (``cross_k``/``cross_v``,
+(B, KV, Se, hd)), as the reference's ``cache["cross"]``.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ from torch import nn
 
 from repro_torch.core.simulator import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, recurrent
+from repro_torch.models import layers, moe, recurrent
 from repro_torch.models.config import ModelConfig
 
 Cache = List[Dict[str, torch.Tensor]]
@@ -44,17 +50,8 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not have yet, naming its ROADMAP item."""
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported "
-                                  "yet (ROADMAP A17)")
-    if "rglru" in cfg.blocks:
-        raise NotImplementedError(f"{cfg.name}: RG-LRU blocks are not "
-                                  "ported yet (ROADMAP A18)")
-    if cfg.is_enc_dec:
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder path is "
-                                  "not ported yet (ROADMAP A19)")
-    unknown = set(cfg.blocks) - {"attn", "local_attn", "rwkv6"}
+    """Raise for a block kind the model does not know."""
+    unknown = set(cfg.blocks) - {"attn", "local_attn", "rwkv6", "rglru"}
     if unknown:
         raise ValueError(f"{cfg.name}: unknown block kinds {sorted(unknown)}")
 
@@ -91,23 +88,31 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """One layer: ``norm1``, the mixer (``attn`` or ``rwkv``), ``norm2``
-    and ``mlp``; ``kind`` is the reference's block kind."""
+    """One layer: ``norm1``, the mixer (``attn``, ``rwkv`` or ``rglru``),
+    with ``cross`` ``norm_x`` and ``xattn``, ``norm2`` and the feed-forward
+    (``moe`` or ``mlp``); ``kind`` is the reference's block kind."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, *, generator=None,
-                 device=None):
+    def __init__(self, cfg: ModelConfig, kind: str, *, cross: bool = False,
+                 generator=None, device=None):
         super().__init__()
         self.kind = kind
         dt = layers.dtype_of(cfg.param_dtype)
+        kw = dict(generator=generator, device=device)
         self.norm1 = layers.RMSNorm(cfg.d_model, dt, device)
         self.norm2 = layers.RMSNorm(cfg.d_model, dt, device)
         if kind in ("attn", "local_attn"):
-            self.attn = attn.Attention(cfg, generator=generator,
-                                       device=device)
+            self.attn = attn.Attention(cfg, **kw)
+        elif kind == "rwkv6":
+            self.rwkv = recurrent.RWKV6(cfg, **kw)
+        elif kind == "rglru":
+            self.rglru = recurrent.RGLRU(cfg, **kw)
+        self.norm_x = layers.RMSNorm(cfg.d_model, dt, device) if cross \
+            else None
+        self.xattn = attn.Attention(cfg, cross=True, **kw) if cross else None
+        if cfg.is_moe:
+            self.moe = moe.MoE(cfg, **kw)
         else:
-            self.rwkv = recurrent.RWKV6(cfg, generator=generator,
-                                        device=device)
-        self.mlp = MLP(cfg, generator=generator, device=device)
+            self.mlp = MLP(cfg, **kw)
 
 
 class Embed(nn.Module):
@@ -123,8 +128,9 @@ class Embed(nn.Module):
 
 
 class Transformer(nn.Module):
-    """All parameters of a decoder-only LM. With ``generator=None`` the
-    weights are left uninitialised (to be filled by a converter)."""
+    """All parameters of an LM (decoder-only or encoder-decoder). With
+    ``generator=None`` the weights are left uninitialised (to be filled by
+    a converter)."""
 
     def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
         super().__init__()
@@ -137,8 +143,12 @@ class Transformer(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings
                         else layers.Dense(cfg.d_model, V, dtype=dt, **kw))
         self.layers = nn.ModuleList(
-            Block(cfg, name.split("_", 1)[1], **kw)
+            Block(cfg, name.split("_", 1)[1], cross=cfg.is_enc_dec, **kw)
             for _, name, _ in layer_keys(cfg))
+        if cfg.is_enc_dec:
+            self.encoder = nn.ModuleList(
+                Block(cfg, "attn", **kw) for _ in range(cfg.encoder_layers))
+            self.enc_norm = layers.RMSNorm(cfg.d_model, dt, device)
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
@@ -188,23 +198,43 @@ def _mlp_forward(p: MLP, cfg: ModelConfig, x):
     return layers.dense(p.wo, h)
 
 
-def _block_forward(p: Block, cfg: ModelConfig, x, *, positions):
+def _block_forward(p: Block, cfg: ModelConfig, x, *, positions,
+                   causal=True, enc_out=None, kv_repeat=1):
+    """Returns (x, aux): the block's output and its MoE aux loss."""
     h = layers.rmsnorm(p.norm1, x, cfg.norm_eps)
     if p.kind == "rwkv6":
         a, _ = recurrent.rwkv6_forward(p.rwkv, cfg, h)
+    elif p.kind == "rglru":
+        a, _ = recurrent.rglru_forward(p.rglru, cfg, h)
     else:
         window = cfg.window if p.kind == "local_attn" else None
         a = attn.attention_forward(p.attn, cfg, h, positions=positions,
-                                   window=window, kv_repeat=cfg.kv_repeat)
+                                   causal=causal, window=window,
+                                   kv_repeat=kv_repeat)
     x = x + a
+    if p.xattn is not None:
+        hx = layers.rmsnorm(p.norm_x, x, cfg.norm_eps)
+        x = x + attn.attention_forward(p.xattn, cfg, hx, positions=None,
+                                       kv_x=enc_out, causal=False,
+                                       rope_on=False)
     h2 = layers.rmsnorm(p.norm2, x, cfg.norm_eps)
-    return x + _mlp_forward(p.mlp, cfg, h2)
+    if cfg.is_moe:
+        m, aux = moe.moe_forward(p.moe, cfg, h2)
+    else:
+        m, aux = _mlp_forward(p.mlp, cfg, h2), None
+    return x + m, aux
 
 
-def _run_stack(params: Transformer, cfg: ModelConfig, x, *, positions):
-    for p in params.layers:
-        x = _block_forward(p, cfg, x, positions=positions)
-    return x
+def _run_stack(blocks, cfg: ModelConfig, x, *, positions, causal=True,
+               enc_out=None, kv_repeat=1):
+    """x through ``blocks`` in order; returns (x, the summed aux loss)."""
+    aux = torch.zeros((), device=x.device)
+    for p in blocks:
+        x, a = _block_forward(p, cfg, x, positions=positions, causal=causal,
+                              enc_out=enc_out, kv_repeat=kv_repeat)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -224,21 +254,45 @@ def lm_logits(params: Transformer, cfg: ModelConfig, x):
     return logits.float()
 
 
-def forward_hidden(params: Transformer, cfg: ModelConfig, tokens):
+def encode(params: Transformer, cfg: ModelConfig, enc_frames):
+    """The encoder over precomputed frame embeddings (B, Se, d) (the
+    frontend is a stub, as in the reference): a non-causal stack, then
+    ``enc_norm``."""
+    x = torch.as_tensor(enc_frames, device=_device_of(params)).to(
+        layers.dtype_of(cfg.dtype))
+    pos = torch.arange(x.shape[1], device=x.device)
+    x, _ = _run_stack(params.encoder, cfg, x, positions=pos, causal=False)
+    return layers.rmsnorm(params.enc_norm, x, cfg.norm_eps)
+
+
+def _enc_out(params: Transformer, cfg: ModelConfig, enc_frames):
+    if not cfg.is_enc_dec:
+        return None
+    if enc_frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
+                         "enc_frames")
+    return encode(params, cfg, enc_frames)
+
+
+def forward_hidden(params: Transformer, cfg: ModelConfig, tokens, *,
+                   enc_frames=None):
     """Backbone only: final hidden states (pre final-norm), and the MoE
-    aux loss (zero: MoE is not ported)."""
+    aux loss (f32 scalar; zero without MoE)."""
+    enc_out = _enc_out(params, cfg, enc_frames)
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    x = _run_stack(params, cfg, x, positions=positions)
-    return x, torch.zeros((), device=x.device)
+    return _run_stack(params.layers, cfg, x, positions=positions,
+                      enc_out=enc_out, kv_repeat=cfg.kv_repeat)
 
 
-def forward(params: Transformer, cfg: ModelConfig, tokens):
-    """Prefill forward: tokens (B, T) -> (logits (B, T, V) f32, aux).
+def forward(params: Transformer, cfg: ModelConfig, tokens, *,
+            enc_frames=None):
+    """Prefill forward: tokens (B, T) -> (logits (B, T, V) f32, aux);
+    an encoder-decoder also takes ``enc_frames`` (B, Se, d).
 
     Runs where ``params`` live (the card, as :func:`init_params` puts
     them by default)."""
-    x, aux = forward_hidden(params, cfg, tokens)
+    x, aux = forward_hidden(params, cfg, tokens, enc_frames=enc_frames)
     return lm_logits(params, cfg, x), aux
 
 
@@ -256,6 +310,11 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                                device=device)
         c["len"].fill_(start_len)
         return c
+    if kind == "rglru":
+        return {"conv": torch.zeros((batch, cfg.conv_width - 1,
+                                     cfg.d_model), dtype=dt, device=device),
+                "h": torch.zeros((batch, cfg.d_model), dtype=dt,
+                                 device=device)}
     K = cfg.rwkv_head_dim
     H = cfg.d_model // K
     return {"shift": torch.zeros((batch, cfg.d_model), dtype=dt,
@@ -263,28 +322,59 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
             "wkv": torch.zeros((batch, H, K, K), device=device)}
 
 
+CROSS_KEYS = ("cross_k", "cross_v")
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               start_len: int = 0, device="cuda") -> Cache:
-    """Decode cache: one dict per layer, in run order."""
+               start_len: int = 0, device="cuda", params=None,
+               enc_frames=None) -> Cache:
+    """Decode cache: one dict per layer, in run order. An
+    encoder-decoder needs ``params`` and ``enc_frames``: each stacked
+    layer's cross-attention keys and values over the encoder's output are
+    computed here once (the reference's ``cache["cross"]``; remainder
+    layers get none, as there)."""
     check_supported(cfg)
     device = resolve_device(device)
-    return [_block_cache(cfg, name.split("_", 1)[1], batch, max_len,
-                         start_len, device)
-            for _, name, _ in layer_keys(cfg)]
+    keys = layer_keys(cfg)
+    cache = [_block_cache(cfg, name.split("_", 1)[1], batch, max_len,
+                          start_len, device) for _, name, _ in keys]
+    if cfg.is_enc_dec:
+        if params is None or enc_frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: "
+                             "init_cache needs params and enc_frames")
+        enc_out = encode(params, cfg, enc_frames)
+        for (stack, _, _), p, c in zip(keys, params.layers, cache):
+            if stack == "layers":
+                for key, w in zip(CROSS_KEYS, (p.xattn.wk, p.xattn.wv)):
+                    c[key] = layers.dense(w, enc_out).transpose(1, 2)
+    return cache
 
 
 def _block_decode(p: Block, cfg: ModelConfig, x, bcache):
     h = layers.rmsnorm(p.norm1, x, cfg.norm_eps)
+    cross = {k: bcache[k] for k in CROSS_KEYS if k in bcache}
     if p.kind == "rwkv6":
         a, bcache = recurrent.rwkv6_decode(p.rwkv, cfg, h, bcache)
+    elif p.kind == "rglru":
+        a, bcache = recurrent.rglru_decode(p.rglru, cfg, h, bcache)
     else:
         window = cfg.window if p.kind == "local_attn" else None
         a, bcache = attn.attention_decode(p.attn, cfg, h, bcache,
                                           window=window,
                                           kv_repeat=cfg.kv_repeat)
     x = x + a
+    if p.xattn is not None and cross:
+        hx = layers.rmsnorm(p.norm_x, x, cfg.norm_eps)
+        x = x + attn.cross_attention_decode(p.xattn, cfg, hx,
+                                            cross["cross_k"],
+                                            cross["cross_v"])
+        bcache = dict(bcache, **cross)
     h2 = layers.rmsnorm(p.norm2, x, cfg.norm_eps)
-    return x + _mlp_forward(p.mlp, cfg, h2), bcache
+    if cfg.is_moe:
+        m, _ = moe.moe_dense_forward(p.moe, cfg, h2)
+    else:
+        m = _mlp_forward(p.mlp, cfg, h2)
+    return x + m, bcache
 
 
 def decode_step(params: Transformer, cfg: ModelConfig, tokens, cache: Cache

@@ -4,8 +4,9 @@ On the CPU the wrapper takes the plain PyTorch version, which is held
 against the reference Pallas kernel in interpret mode and the reference
 oracles ``ref.attention_ref`` / ``ref.attention_len_ref`` over the
 shapes of ``tests/test_kernels.py`` (GQA, window, bidirectional, Tq=1,
-``kv_len``, bf16), at the reference's tolerances (f32: rtol 2e-4, atol
-2e-5; bf16: 5e-2). Shapes the Pallas kernel cannot tile (odd T) and
+``kv_len``, bf16) and at the two wide head dims of the served configs
+(160: stablelm-12b; 256 with MQA and a window: recurrentgemma-9b), at the
+reference's tolerances (f32: rtol 2e-4, atol 2e-5; bf16: 5e-2). Shapes the Pallas kernel cannot tile (odd T) and
 fully masked rows are held against the oracles. The CUDA kernel itself
 runs only on the card: ``tests/test_torch_kernels_gpu.py`` and
 ``chip_smoke.py`` hold it against the plain version there.
@@ -62,9 +63,18 @@ SWEEP = [
     (2, 4, 4, 64, 64, 128, 64, 64, False, None),       # bidirectional
     (1, 2, 1, 1, 128, 64, 1, 64, False, None),         # decode Tq=1
 ]
+#: the wide head dims: stablelm-12b's 160 (GQA 4), recurrentgemma-9b's
+#: 256 (MQA, window), both at Tq=1 too
+SWEEP_WIDE = [
+    (1, 8, 2, 128, 128, 160, 64, 64, True, None),
+    (1, 4, 1, 128, 128, 256, 64, 32, True, 48),
+    (2, 4, 1, 1, 128, 160, 1, 64, False, None),
+    (1, 2, 1, 1, 96, 256, 1, 32, False, None),
+]
 
 
-@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,bq,bk,causal,window", SWEEP)
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,bq,bk,causal,window",
+                         SWEEP + SWEEP_WIDE)
 def test_plain_matches_pallas_and_oracle(B, Hq, Hkv, Tq, Tk, D, bq, bk,
                                          causal, window):
     q, k, v = _arrays(Tq + Tk + D, (B, Hq, Tq, D), (B, Hkv, Tk, D),
@@ -81,8 +91,8 @@ def test_plain_matches_pallas_and_oracle(B, Hq, Hkv, Tq, Tk, D, bq, bk,
 
 @pytest.mark.parametrize("causal,window", [(False, None), (True, None),
                                            (True, 24)])
-def test_plain_kv_len_matches_pallas_and_oracle(causal, window):
-    B, Hq, Hkv, Tk, D = 2, 4, 2, 128, 64
+def test_plain_kv_len_matches_pallas_and_oracle(causal, window, D=64):
+    B, Hq, Hkv, Tk = 2, 4, 2, 128
     Tq = 1 if not causal else 32
     q, k, v = _arrays(7, (B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D))
     (jq, tq), (jk, tk), (jv, tv) = _both(q), _both(k), _both(v)
@@ -95,6 +105,12 @@ def test_plain_kv_len_matches_pallas_and_oracle(causal, window):
                                      causal=causal, window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want_kernel), **F32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want_ref), **F32)
+
+
+@pytest.mark.parametrize("causal,window,D", [(False, None, 160),
+                                             (True, 24, 256)])
+def test_plain_kv_len_wide_head_dims(causal, window, D):
+    test_plain_kv_len_matches_pallas_and_oracle(causal, window, D)
 
 
 def test_plain_bf16_matches_pallas_and_oracle():
@@ -255,7 +271,8 @@ def _bf16_inputs(seed, B, Hq, Hkv, Tq, Tk, D):
     return [_both(a, "bfloat16") for a in (q, k, v)]
 
 
-@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,bq,bk,causal,window", SWEEP)
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,bq,bk,causal,window",
+                         SWEEP + SWEEP_WIDE)
 def test_bf16_kernel_arithmetic_within_one_step(B, Hq, Hkv, Tq, Tk, D, bq,
                                                 bk, causal, window):
     (jq, tq), (jk, tk), (jv, tv) = _bf16_inputs(Tq + Tk + D, B, Hq, Hkv,

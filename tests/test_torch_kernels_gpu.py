@@ -238,6 +238,8 @@ ATTN_CASES = [
     (1, 4, 2, 130, 200, 64, torch.bfloat16, True, 48, None),     # window
     (3, 4, 1, 1, 300, 128, torch.float32, False, None, (0, 17, 300)),
     (2, 2, 2, 64, 64, 32, torch.float32, False, None, None),
+    (1, 4, 2, 193, 193, 160, torch.float32, True, None, None),   # stablelm
+    (1, 4, 1, 130, 257, 256, torch.float32, True, 64, None),     # rg, MQA
 ]
 
 
@@ -307,6 +309,14 @@ BF16_ATTN_CASES = [
     (3, 16, 8, 1, 300, 128, False, None, (0, 17, 300)),  # decode, 0 row
     (2, 4, 1, 100, 257, 64, False, None, (256, 3)),    # group 4, kv_len
     (1, 6, 2, 130, 130, 32, True, None, None),         # group 3 (odd)
+    # the wide head dims: D=160 pads to three 128-byte boxes, D=256 runs
+    # a 2-stage ring
+    (1, 32, 8, 1024, 1024, 160, True, None, None),     # stablelm-12b
+    (1, 6, 2, 130, 130, 160, True, None, None),        # D=160, group 3
+    (3, 8, 2, 1, 300, 160, False, None, (0, 17, 300)),
+    (1, 16, 1, 1024, 1024, 256, True, 256, None),      # recurrentgemma
+    (1, 3, 1, 200, 200, 256, True, None, None),        # D=256, group 3
+    (2, 16, 1, 1, 300, 256, False, None, (5, 300)),
 ]
 
 
@@ -365,6 +375,17 @@ def test_flash_attention_bf16_raises_on_tma_stride(cuda_device):
     q2 = base[1:].view(1, 2, 64, 64)                   # base 2 B off
     with pytest.raises(ValueError, match="16-byte"):
         fmod.flash_attention(q2, k, k)
+
+
+@pytest.mark.gpu
+def test_flash_attention_raises_on_a_head_dim_it_lacks(cuda_device):
+    from repro_torch.kernels import flash_attention as fmod
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros((1, 2, 64, 96), dtype=dtype, device=cuda_device)
+        before = fmod.launches
+        with pytest.raises(ValueError, match="head dims"):
+            fmod.flash_attention(q, q, q)
+        assert fmod.launches == before
 
 
 @pytest.mark.gpu

@@ -1,8 +1,10 @@
 """Port parity: the ATA prefix-cache ``ModelServer`` over the LM.
 
 The port's server and the reference's serve the same requests with the
-same weights (carried across with ``convert.params``) for the
-``qwen3-0.6b`` and ``rwkv6-3b`` smoke models: the greedy tokens, the
+same weights (carried across with ``convert.params``) for the smoke
+models of every decoder-only architecture (all but ``whisper-tiny``,
+whose cache needs encoder frames that neither server is given): the
+greedy tokens, the
 per-request ``reused_blocks`` and ``prefill_tokens``, and the directory's
 ``ata.stats`` must be equal. The two serving claims of
 ``tests/test_system.py`` hold in the port, and the CLI prints the
@@ -21,11 +23,13 @@ from repro.launch import serve as ref_serve  # noqa: E402
 from repro.models import transformer as RT  # noqa: E402
 from repro.serving import ref as ref_cache  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_smoke_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serving import ref as port_cache  # noqa: E402
 
+#: every architecture the server takes
+SERVED = tuple(a for a in ARCH_IDS if not get_smoke_config(a).is_enc_dec)
 STATS = ("local_hits", "remote_hits", "recomputed_blocks", "probe_messages",
          "remote_fetch_blocks", "directory_sync_entries")
 
@@ -47,7 +51,7 @@ def _models(arch):
     return rcfg, rparams, cfg, convert.params(rparams, cfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", SERVED)
 def test_model_server_matches_reference(arch):
     rcfg, rparams, cfg, params = _models(arch)
     shards, block = 2, 8
@@ -100,7 +104,7 @@ def test_serve_ata_prefix_reuse_saves_prefill():
     assert ata.stats.probe_messages == 0
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", SERVED)
 def test_serve_reuse_preserves_tokens(arch):
     """Decode after ATA prefix reuse == decode after full prefill, and
     serving leaves the sealed snapshots as they were sealed."""
@@ -149,3 +153,11 @@ def test_server_defaults_to_the_card():
         serve.ModelServer(cfg, params, ata, 0)
     with pytest.raises(ValueError, match="params are on cpu"):
         serve.ModelServer(cfg, params, ata, 0, device="meta")
+
+
+def test_cli_takes_every_decoder_only_arch():
+    """``--arch`` takes the nine decoder-only architectures; the
+    encoder-decoder, whose cache needs encoder frames, is refused."""
+    assert len(SERVED) == len(ARCH_IDS) - 1
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "whisper-tiny", "--smoke", "--device", "cpu"])

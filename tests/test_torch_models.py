@@ -1,8 +1,9 @@
 """Port parity: the LM substrate's inference path.
 
-For the ``qwen3-0.6b`` and ``rwkv6-3b`` smoke configs, the reference's
-parameters are carried across with ``convert.params`` and the same
-tokens go through both packages:
+For the smoke configs of all ten architectures (dense, MoE, RWKV6,
+RG-LRU hybrid, encoder-decoder), the reference's parameters are carried
+across with ``convert.params`` and the same tokens (and, for
+``whisper-tiny``, frame embeddings) go through both packages:
 
 - prefill ``forward`` logits, the reference at "interpret" (its Pallas
   kernels) against the port's "kernel" route (the kernels' plain
@@ -13,8 +14,11 @@ tokens go through both packages:
 - an int8-KV variant, a ``local_attn`` (ring-buffer) variant and a long
   mixed block pattern (the reference runs a period's blocks in
   ``sorted(name)`` order) of the qwen3 smoke config;
-- the ``layers`` functions, the configs, and ``convert.params``' leaf
-  accounting.
+- decode against ``forward``, the reference's own check (rel < 2e-2;
+  MoE at capacity factor 8, where prefill drops no token);
+- the ``layers`` functions, the configs (``ARCH_IDS`` in the
+  reference's order, every value, ``paper_gpu`` and ``shapes``), and
+  ``convert.params``' leaf accounting.
 """
 import dataclasses
 import functools
@@ -26,6 +30,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro import configs as ref_configs  # noqa: E402
 from repro.configs import get_config as ref_config  # noqa: E402
 from repro.configs import get_smoke_config as ref_smoke  # noqa: E402
 from repro.models import layers as RL  # noqa: E402
@@ -35,7 +40,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.models import layers as PL  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
-ARCHS = ("qwen3-0.6b", "rwkv6-3b")
+ARCHS = configs.ARCH_IDS
 REL = 1e-5
 
 
@@ -74,6 +79,26 @@ def _tokens(cfg, B=2, S=32, seed=0):
         0, cfg.vocab_size, (B, S)).astype(np.int32)
 
 
+def _frames(cfg, B=2, Se=12, seed=7):
+    """The encoder's frame embeddings of an encoder-decoder (the stub
+    frontend's input) as (jax kwargs, torch kwargs); empty otherwise."""
+    if not cfg.is_enc_dec:
+        return {}, {}
+    f = np.random.default_rng(seed).standard_normal(
+        (B, Se, cfg.d_model)).astype(np.float32)
+    return {"enc_frames": jnp.asarray(f)}, {"enc_frames": torch.from_numpy(f)}
+
+
+def _init_caches(rcfg, rparams, cfg, params, B, max_len):
+    """Empty decode caches of both packages (an encoder-decoder's with
+    its cross keys and values)."""
+    jkw, tkw = _frames(cfg, B)
+    if cfg.is_enc_dec:
+        jkw["params"], tkw["params"] = rparams, params
+    return (RT.init_cache(rcfg, B, max_len, **jkw),
+            T.init_cache(cfg, B, max_len, device="cpu", **tkw))
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("impl", ["interpret", "ref", "blocked"])
 def test_forward_matches_reference(arch, impl):
@@ -83,9 +108,12 @@ def test_forward_matches_reference(arch, impl):
     assert cfg.attention_impl == ("kernel" if impl == "interpret" else impl)
     params = convert.params(rparams, cfg, device="cpu")
     tokens = _tokens(cfg)
-    want, _ = RT.forward(rparams, rcfg, jnp.asarray(tokens))
-    got, aux = T.forward(params, cfg, torch.from_numpy(tokens))
-    assert got.dtype == torch.float32 and float(aux) == 0.0
+    jkw, tkw = _frames(cfg)
+    want, waux = RT.forward(rparams, rcfg, jnp.asarray(tokens), **jkw)
+    got, aux = T.forward(params, cfg, torch.from_numpy(tokens), **tkw)
+    assert got.dtype == torch.float32 and aux.dtype == torch.float32
+    assert abs(float(aux) - float(waux)) <= REL * abs(float(waux))
+    assert float(aux) == 0.0 or cfg.is_moe
     assert got.shape == (2, 32, T.padded_vocab(cfg))
     assert rel_err(got, want) <= REL
 
@@ -119,8 +147,7 @@ def _check_cache(cache, rcache, cfg):
 
 
 @pytest.mark.parametrize("arch,over", [
-    ("qwen3-0.6b", ()),
-    ("rwkv6-3b", ()),
+    *((a, ()) for a in ARCHS),
     ("rwkv6-3b", (("attention_impl", "interpret"),)),
     ("qwen3-0.6b", (("kv_cache_dtype", "int8"),)),
     ("qwen3-0.6b", (("block_pattern", ("local_attn",)), ("window", 8))),
@@ -132,8 +159,8 @@ def test_decode_matches_reference(arch, over):
     cfg, params = _port_model(arch, over)
     tokens = _tokens(cfg, S=20, seed=1)
     worst, rcache, cache = _decode_both(
-        rcfg, rparams, cfg, params, tokens, RT.init_cache(rcfg, 2, 24),
-        T.init_cache(cfg, 2, 24, device="cpu"))
+        rcfg, rparams, cfg, params, tokens,
+        *_init_caches(rcfg, rparams, cfg, params, 2, 24))
     assert worst <= REL
     _check_cache(cache, rcache, cfg)
 
@@ -144,7 +171,7 @@ def test_decode_resumes_from_converted_cache(arch):
     cfg, params = _port_model(arch)
     tokens = _tokens(cfg, S=16, seed=2)
     step = jax.jit(lambda p, t, c: RT.decode_step(p, rcfg, t, c))
-    rcache = RT.init_cache(rcfg, 2, 16)
+    rcache, _ = _init_caches(rcfg, rparams, cfg, params, 2, 16)
     for t in range(8):
         _, rcache = step(rparams, jnp.asarray(tokens[:, t:t + 1]), rcache)
     cache = convert.cache(jax.tree.map(np.asarray, rcache), cfg,
@@ -157,11 +184,16 @@ def test_decode_resumes_from_converted_cache(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_forward(arch):
-    """The reference's own consistency check, in the port."""
-    cfg, params = _port_model(arch)
+    """The reference's own consistency check, in the port; MoE at
+    capacity factor 8, as the reference's own MoE check (prefill's
+    capacity drops no token there; decode has none)."""
+    over = (("capacity_factor", 8.0),) if "moe" in arch else ()
+    rcfg, rparams = _ref_model(arch, over)
+    cfg, params = _port_model(arch, over)
     tokens = torch.from_numpy(_tokens(cfg, S=20, seed=3))
-    full, _ = T.forward(params, cfg, tokens)
-    cache = T.init_cache(cfg, 2, 20, device="cpu")
+    _, tkw = _frames(cfg)
+    full, _ = T.forward(params, cfg, tokens, **tkw)
+    _, cache = _init_caches(rcfg, rparams, cfg, params, 2, 20)
     outs = []
     for t in range(20):
         lg, cache = T.decode_step(params, cfg, tokens[:, t:t + 1], cache)
@@ -208,14 +240,18 @@ def test_cast_for_compute_is_bit_identical(arch):
     served = T.cast_for_compute(params, cfg)
     for (name, p), q in zip(params.named_parameters(), served.parameters()):
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("scale", "u", "w_base", "ln_scale", "ln_bias"):
+        if (leaf in ("scale", "u", "w_base", "ln_scale", "ln_bias", "lam")
+                or ".router." in name):
             assert q is p, name
         else:
             assert q.dtype == torch.bfloat16, name
     tokens = torch.from_numpy(_tokens(cfg, S=16))
-    assert torch.equal(T.forward(served, cfg, tokens)[0],
-                       T.forward(params, cfg, tokens)[0])
-    caches = [T.init_cache(cfg, 2, 16, device="cpu") for _ in range(2)]
+    _, tkw = _frames(cfg)
+    assert torch.equal(T.forward(served, cfg, tokens, **tkw)[0],
+                       T.forward(params, cfg, tokens, **tkw)[0])
+    caches = [T.init_cache(cfg, 2, 16, device="cpu",
+                           **(dict(tkw, params=m) if cfg.is_enc_dec else {}))
+              for m in (served, params)]
     for t in range(4):
         tok = tokens[:, t:t + 1]
         a, caches[0] = T.decode_step(served, cfg, tok, caches[0])
@@ -295,15 +331,27 @@ def test_configs_copy_the_reference_value_for_value(arch):
         assert port.sub_quadratic == ref.sub_quadratic
 
 
-@pytest.mark.parametrize("arch", sorted(configs.WAITING))
-def test_unported_archs_raise_naming_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        configs.get_smoke_config(arch)
-    if not configs.WAITING[arch].startswith("A16"):   # a block is missing
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.Transformer(convert.model_config(ref_smoke(arch)))
+def test_arch_ids_and_the_other_config_modules_copy_the_reference():
+    from repro.configs import paper_gpu as ref_paper
+    from repro.configs import shapes as ref_shapes
+    from repro_torch.configs import paper_gpu, shapes
+    assert configs.ARCH_IDS == ref_configs.ARCH_IDS
+    assert list(configs.all_configs()) == list(ref_configs.all_configs())
+    assert dataclasses.asdict(paper_gpu.CONFIG) == dataclasses.asdict(
+        ref_paper.CONFIG)
+    assert ({k: dataclasses.asdict(v) for k, v in shapes.SHAPES.items()}
+            == {k: dataclasses.asdict(v)
+                for k, v in ref_shapes.SHAPES.items()})
+    for arch in ARCHS:
+        for name, spec in shapes.SHAPES.items():
+            assert (shapes.applicable(configs.get_config(arch), spec)
+                    == ref_shapes.applicable(ref_config(arch),
+                                             ref_shapes.SHAPES[name]))
+    with pytest.raises(KeyError, match="unknown arch"):
+        configs.get_config("llama")
+    with pytest.raises(ValueError, match="unknown block kinds"):
+        T.Transformer(dataclasses.replace(configs.get_smoke_config(
+            "qwen3-0.6b"), block_pattern=("mamba",)))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
