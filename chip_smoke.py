@@ -94,15 +94,16 @@ script then exits non-zero with no result line):
    results bit-equal; (c) the geometry and NoC-topology figures at 96
    rounds (finite ratios; under ``ideal`` the gap flat in ``noc_bw``,
    under ``crossbar`` and ``ring`` closing monotonically as it shrinks);
-   (d) the serving scale grid at 512 rounds on the ``torch`` probe,
-   gated by ``compare_serving`` against the serving baseline, every cell
+   (d) the serving scale grid's 8-shard half at 512 rounds on the
+   ``torch`` probe, gated by ``compare_serving`` against the serving
+   baseline's 8-shard cells, every cell
    equal to phase 7's ``cuda`` replay and its exact p50/p99 to the
    baseline's; (e) ``check_regression`` on both reports. ``ata_probe_rank``
    launches in (b) and (c) counted from 0 and exactly as due;
-10. the serving main path at ``fig_serving_scale.py``'s shape cut to an
-    eighth of its depth: one 16-shard chat+rag stream of about 125,000
+10. the serving main path at ``fig_serving_scale.py``'s shape cut to a
+    sixteenth of its depth: one 16-shard chat+rag stream of about 62,500
     requests replayed under ``ata`` at B=4, with the launch counters
-    zeroed just before and read just after, and a profile of 64
+    zeroed just before and read just after, and a profile of 16
     sub-rounds;
 11. the LM inference path at full width (qwen3-0.6b and rwkv6-3b, weights
     made on the card from fixed seeds): prefill ``forward`` at B=1, T=4096
@@ -114,7 +115,7 @@ script then exits non-zero with no result line):
     WKV6 outputs that differ from the exact ones;
 13. ``ModelServer`` at the reference launcher's defaults cut to half its
     requests (8 requests, 4 shards, block 16, 8 decode steps, ``ata``)
-    for both models at full width and a quarter of their depth, launch
+    for both models at full width and an eighth of their depth, launch
     counters zeroed just before and read just after: the directory's
     stats against ``run_workload``, and one request served cold and warm;
 14. the LM substrate's other eight families (``LM_FAMILIES``: four
@@ -127,7 +128,23 @@ script then exits non-zero with no result line):
     f32 decode against forward; ``ModelServer`` on the MoE and hybrid
     models, two requests sharing a prefix, tokens equal to a plain
     ``decode_step`` chain's; the RG-LRU scan's time at T=4096;
-15. the per-phase times, the card line again, a ``kernels`` JSON line,
+15. training (``phase_train``): (a) qwen3-0.6b at full width and depth
+    (28 layers, vocab 151,936), f32 masters, bf16 compute, remat per
+    layer, the blocked route, 12 steps of B=4 x T=512 from the data
+    pipeline with a 3-step warmup: losses and grad norms finite, the mean
+    of the last 4 losses below the first 4, the four kernels' counts read
+    from 0 (training launches none), ms per step, tokens/s, peak memory
+    and one profiled step's launches and busy share; (b) depth 2, f32:
+    one step on the card against one on the host's CPU from one state,
+    TF32 off (loss, grad norm, every leaf of m (the clipped gradient,
+    scaled) and v, every updated parameter, to stated limits); (c) depth 2: ``train()`` stopped at step 3, resumed
+    through the checkpoint store and run to step 6, its losses equal to
+    an uninterrupted run's bit for bit, save and restore timed; (d)
+    ``ops.attention`` on the kernel route raising under grad, ``train()``
+    refusing it; (e) ``launch/calibrate`` on phase 4's suite, equal to
+    its Fig. 8 / Fig. 10 gains, and ``launch/bench_trend`` over the
+    committed baselines and phase 9's reports, one series per backend;
+16. the per-phase times, the card line again, a ``kernels`` JSON line,
     and as the last line ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke_report.json``.
@@ -785,7 +802,14 @@ def log_rows(title, rows) -> None:
         log("  " + "  ".join(f"{n}={d}" for n, d in rows[i:i + 6]))
 
 
-def profile_round_loop(device, rounds: int = 64, arch="ata",
+#: rounds (sub-rounds) of each profiled window: the profiler's own cost
+#: is most of a profile's wall, and a per-round mean needs few rounds
+#: (cut from 64, and 32 for the stacked pass, to make room for the
+#: training phase; PERF.md section 7)
+PROFILE_ROUNDS = 16
+
+
+def profile_round_loop(device, rounds: int = PROFILE_ROUNDS, arch="ata",
                        telemetry=None) -> dict:
     """Where a round's time goes: ``arch`` on the 46-kernel m=4 batch for
     ``rounds`` rounds under torch.profiler — host wall per round, device
@@ -844,7 +868,9 @@ ZOO_ARCHITECTURES = ("ata_bypass", "ata_fifo", "ciao", "victim")
 SENSITIVITY = ROOT / "benchmarks" / "baselines" / "sensitivity_rounds96.json"
 SENSITIVITY_METRICS = ("ipc", "l1_hit_rate", "remote_hit_rate", "noc_flits",
                        "l1_latency")
-ZOO_BACKEND_ROUNDS = 256     # cut rounds of the probe-backend comparison
+#: cut rounds of the probe-backend comparisons (phases 4 and 5), cut
+#: from 256 to make room for the training phase (PERF.md section 7)
+ZOO_BACKEND_ROUNDS = 128
 #: phase 5's per-point simulate() of the sensitivity baseline's zoo
 #: points, {(arch, geometry, noc): SimResult}, reused by phase 6
 _ZOO_MEMO = {}
@@ -1148,7 +1174,7 @@ def phase_sweep(device) -> dict:
         f"report and the pair): {launches}")
     # what a stacked round costs: ata and victim over the same 46 traces
     # in one pass, beside phases 4 and 5's single-policy profiles
-    profiled = profile_round_loop(device, rounds=32, arch=("ata", "victim"))
+    profiled = profile_round_loop(device, arch=("ata", "victim"))
     return {"launches": launches, "report_launches": report_launches,
             "section_launches": due, "pair_launches": pair_launches,
             "report_s": report_s, "sections": sections,
@@ -1457,13 +1483,15 @@ def phase_telemetry(device) -> dict:
             for k, b in sorted(builds.items())) + "; the gate passes")
 
     # 6. what telemetry adds to an ata round on the 46-kernel batch,
-    # beside phase 4's plain profile of the same 64 rounds (one profile:
-    # the profiler's own cost is most of a profile's wall)
+    # beside phase 4's plain profile of the same rounds (one profile:
+    # the profiler's own cost is most of a profile's wall), with one
+    # window over the profiled rounds
     if "ata" not in _PROFILES:
         raise AssertionError("the telemetry phase needs the profile of "
                              "phase 'suite'")
     profiles = {"ata_telemetry": profile_round_loop(
-        device, rounds=64, arch=("ata",), telemetry=tc)}
+        device, arch=("ata",), telemetry=TelemetryConfig(
+            window=PROFILE_ROUNDS))}
     per_round = {k: v["kernel_launches_per_round"]
                  for k, v in {**_PROFILES, **profiles}.items()}
     log(f"(6) kernel launches per round on the 46-kernel batch: ata "
@@ -1484,6 +1512,9 @@ def phase_telemetry(device) -> dict:
 SIMSPEED_BASELINE = ROOT / "benchmarks" / "baselines" / \
     "simspeed_rounds64.json"
 SIMSPEED_BACKENDS = ("torch", "torch_unfused", "cuda")
+#: the serving baseline's shard counts that phase 9 (d) replays on the
+#: plain probe (phase 7 replays every cell on the card's)
+BENCH_SHARDS = (8,)
 #: the grid figures' rounds: the sensitivity baseline's
 FIGURE_ROUNDS = 96
 
@@ -1623,14 +1654,19 @@ def phase_bench(device) -> dict:
         + f"; ata_probe_rank launched {fig_launches} times (= due)")
 
     # (d) the serving scale grid on the plain probe, gated, and every cell
-    # equal to phase 7's cuda replay of it
+    # equal to phase 7's cuda replay of it: the baseline's 8-shard half
+    # (phase 7 replays all 24 cells on the card's probe; this replayed
+    # all 24 again on the plain one before the training phase came)
     t0 = time.perf_counter()
     if not _SERVE_EXACT:
         raise AssertionError("(d) needs phase 'serving_exact'")
     serve_json = REPORT.parent / "bench_serving.json"
     base = load_report(BASELINE)
+    base = dict(base, config=dict(base["config"], shards=list(BENCH_SHARDS)),
+                cells=[c for c in base["cells"]
+                       if c["shards"] in BENCH_SHARDS])
     tmod.launches = 0
-    srep = serving_scale.run(rounds=512, reps=1,
+    srep = serving_scale.run(rounds=512, reps=1, shards=BENCH_SHARDS,
                              cfg=ServingConfig(probe_backend="torch"),
                              out_json=str(serve_json), device=device)
     if tmod.launches != 0:
@@ -1659,17 +1695,21 @@ def phase_bench(device) -> dict:
                       "cells": len(srep["cells"]),
                       "probe_backend": srep["config"]["probe_backend"]}
     walls["d"] = time.perf_counter() - t0
-    log(f"(d) serving scale at 512 rounds on the torch probe: "
-        f"{len(srep['cells'])} cells gated against {BASELINE.name} with no "
+    log(f"(d) serving scale at 512 rounds on the torch probe, shards "
+        f"{list(BENCH_SHARDS)}: {len(srep['cells'])} cells gated against "
+        f"{BASELINE.name}'s with no "
         f"failure, each equal to phase 7's cuda replay (5 counters, hit "
         f"rate, load imbalance, requests/kcycle), hist_exact, p50/p99 = the "
         f"baseline's; batched_model_speedup "
         f"{srep['headline']['batched_model_speedup']:.4f}")
 
-    # (e) the regression CLI, in process, on both reports
+    # (e) the regression CLI, in process, on both reports (the serving
+    # one against the baseline's cells that (d) replayed)
     t0 = time.perf_counter()
+    serve_base = REPORT.parent / "bench_serving_baseline.json"
+    serve_base.write_text(json.dumps(base, indent=1) + "\n")
     for base_path, cand in ((SIMSPEED_BASELINE, sim_json),
-                            (BASELINE, serve_json)):
+                            (serve_base, serve_json)):
         rc = check_regression.main([str(base_path), str(cand)])
         if rc != 0:
             raise AssertionError(f"(e) check_regression {base_path.name} "
@@ -1689,11 +1729,12 @@ def phase_bench(device) -> dict:
 SCALE_SHARDS = 16
 SCALE_MIX = ("chat", "rag")
 #: fig_serving_scale.DEFAULT_REQUESTS is 1,000,000; the replay is cut to
-#: an eighth of that depth. The 1M replay took 217-238 s on one H100; a
+#: a sixteenth of that depth. The 1M replay took 217-238 s on one H100; a
 #: quarter took 78-91 s, and with it and the other LM families the whole
 #: script's phases took 1,332 s on a slow host, over its 1,200 s limit
-#: (PERF.md §5)
-SCALE_REQUESTS = 125_000
+#: (PERF.md §5); an eighth took 31-44 s, halved again for the training
+#: phase
+SCALE_REQUESTS = 62_500
 SCALE_SLOTS = 4
 #: rounds of the scale stream; None: calibrated as fig_serving_scale.py
 #: does, so the stream carries at least SCALE_REQUESTS requests
@@ -1766,7 +1807,7 @@ def phase_serving_scale(device) -> dict:
     return out
 
 
-def profile_sub_rounds(stream, device, rows: int = 64) -> dict:
+def profile_sub_rounds(stream, device, rows: int = PROFILE_ROUNDS) -> dict:
     """Where a sub-round's time goes: ``ata`` on the first ``rows``
     sub-rounds of the scale stream under torch.profiler — host wall per
     sub-round, device busy time (sum of kernel self times), kernel
@@ -2453,12 +2494,14 @@ SERVE_STATS = ("local_hits", "remote_hits", "recomputed_blocks",
                "directory_sync_entries")
 
 
-#: ModelServer's models: full width, a quarter of the depth (7 of
-#: qwen3-0.6b's 28 layers, 8 of rwkv6-3b's 32). Decode is host-bound at
-#: ~50-73 ms a token, and 8 requests at full depth took 169-232 s of
-#: the script's 1,200 s (PERF.md section 5); what the phase checks (the
-#: directory's stats, warm == cold) does not depend on the depth
-LM_SERVE_DEPTH = {"qwen3-0.6b": 7, "rwkv6-3b": 8}
+#: ModelServer's models: full width, an eighth of the depth (4 of
+#: qwen3-0.6b's 28 layers, 4 of rwkv6-3b's 32; a quarter before the
+#: training phase came).
+#: Decode is host-bound at ~50-73 ms a token, and 8 requests at full
+#: depth took 169-232 s of the script's 1,200 s (PERF.md section 5);
+#: what the phase checks (the directory's stats, warm == cold) does not
+#: depend on the depth
+LM_SERVE_DEPTH = {"qwen3-0.6b": 4, "rwkv6-3b": 4}
 
 
 def serve_model(arch, device):
@@ -2478,7 +2521,7 @@ def serve_model(arch, device):
 def phase_lm_serve(device) -> dict:
     """``ModelServer`` at the reference launcher's defaults cut to half
     its 16 synthetic requests (8 requests, 4 shards, block 16, 8 decode
-    steps, ``ata``) for both models at a quarter of their depth
+    steps, ``ata``) for both models at an eighth of their depth
     (``LM_SERVE_DEPTH``); the directory's stats against
     ``run_workload``; one request served cold and then warm."""
     import torch
@@ -2858,6 +2901,359 @@ def phase_lm_families(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_STEPS = 12
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+#: a warmup short enough that a dozen steps train (the default's 100
+#: steps would keep the learning rate near 0)
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=3, total_steps=TRAIN_STEPS)
+#: (b) and (c): the same width, depth cut to 2 (the full-depth state of
+#: params, m and v is ~9 GB; (b) also steps on the host's CPU)
+CHECK_DEPTH = 2
+CHECK_BATCH, CHECK_SEQ = 2, 128
+RESUME_STEPS, RESUME_AT = 6, 3
+#: (b) the card against the CPU, both f32 with TF32 off: f32 sums in
+#: another order differ in the last bits (~1e-6 relative); the limits
+#: leave an order of magnitude or more. An updated parameter whose
+#: gradient is near the rounding noise can move by lr one way on one
+#: device and the other way on the other (AdamW's first step is about
+#: lr x sign(g)), so every element is held to 2 x lr, and the elements
+#: whose gradient is above 1e-3 of their leaf's largest to 1e-3 x lr.
+CARD_CPU_LOSS_REL = 1e-5
+CARD_CPU_GNORM_REL = 1e-4
+CARD_CPU_LEAF_REL = 1e-3
+
+
+def train_config(depth=None, **over):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARCH)
+    return dataclasses.replace(cfg, **{
+        "attention_impl": "blocked", "remat": "layer",
+        "n_layers": depth or cfg.n_layers, **over})
+
+
+def kernel_counts() -> dict:
+    from repro_torch.kernels import ata_probe_rank as kmod
+    from repro_torch.kernels import ata_tag_probe as tmod
+    return {"ata_probe_rank": kmod.launches, "ata_tag_probe": tmod.launches,
+            **lm_counts()}
+
+
+def reset_kernel_counts():
+    from repro_torch.kernels import ata_probe_rank as kmod
+    from repro_torch.kernels import ata_tag_probe as tmod
+    kmod.launches = tmod.launches = 0
+    reset_lm_counts()
+
+
+def leaf_rel(got, want) -> float:
+    """Max abs difference over the leaf's largest magnitude."""
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def phase_train(device) -> dict:
+    """Training at full width (qwen3-0.6b, 28 layers, vocab 151,936): (a)
+    TRAIN_STEPS steps of ``make_train_step`` from the data pipeline
+    (f32 masters, bf16 compute, remat per layer, the blocked route), every
+    loss and grad norm finite and the loss falling, the four kernels'
+    counts read from 0 (training launches none: the kernels have no
+    backward), one step profiled; (b) one step on the card against one on
+    the host's CPU from the same state, depth CHECK_DEPTH, f32; (c)
+    ``train()`` stopped at step RESUME_AT and resumed through the
+    checkpoint store to RESUME_STEPS, against one uninterrupted run;
+    (d) the kernel route raising under grad; (e) ``calibrate`` on phase
+    4's suite and ``bench_trend`` over the committed baselines and phase
+    9's reports."""
+    import copy
+    import shutil
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import bench_trend, calibrate
+    from repro_torch.launch import train as launch_train
+    from repro_torch.core import figures
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import init_train_state, make_train_step
+    _MODELS.clear()
+    torch.cuda.empty_cache()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: f32 would not be f32")
+    out = {}
+
+    # (a) the slice's path at full width
+    cfg = train_config()
+    opt = AdamWConfig(**TRAIN_OPT)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    t0 = time.perf_counter()
+    state = init_train_state(
+        cfg, generator=torch.Generator(device).manual_seed(0), device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    step_fn = make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    losses, gnorms, walls = [], [], []
+    for step in range(TRAIN_STEPS):
+        batch = launch_train.batch_on(dcfg, step, device)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        walls.append(time.perf_counter() - t0)
+    counts = kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if any(counts.values()):
+        raise AssertionError(f"(a) training launched a kernel: {counts}")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"(a) non-finite loss or grad norm: {losses} "
+                             f"{gnorms}")
+    first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+    if not last < first:
+        raise AssertionError(f"(a) the loss did not fall: {losses}")
+    batch = launch_train.batch_on(dcfg, TRAIN_STEPS, device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    per_kernel = device_kernels(prof)
+    busy_ms = sum(d for d, _, _ in per_kernel) / 1e3
+    med = float(np.median(walls))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out["a"] = {
+        "config": {"arch": TRAIN_ARCH, "layers": cfg.n_layers,
+                   "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+                   "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+                   "remat": cfg.remat, "attention_impl": cfg.attention_impl,
+                   "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "opt": TRAIN_OPT},
+        "params": n_params, "init_s": init_s, "losses": losses,
+        "grad_norms": gnorms, "step_wall_s": walls,
+        "ms_per_step": med * 1e3, "tokens_per_s": tokens / med,
+        "launches_per_step": sum(c for _, c, _ in per_kernel),
+        "busy_ms_per_step": busy_ms, "busy_share": busy_ms / 1e3 / med,
+        "profiled_step_ms": prof_wall * 1e3, "peak_gb": peak_gb,
+        "kernel_launches": counts,
+        "top_kernels_ms": [(k[:90], d / 1e3, c) for d, c, k
+                           in sorted(per_kernel, reverse=True)[:8]]}
+    a = out["a"]
+    log(f"(a) {TRAIN_ARCH} training, {cfg.n_layers} layers, d={cfg.d_model}"
+        f", {n_params} parameters (f32 masters, {cfg.dtype} compute, remat "
+        f"{cfg.remat!r}, attention_impl {cfg.attention_impl!r}), B="
+        f"{TRAIN_BATCH} x T={TRAIN_SEQ}, {TRAIN_STEPS} steps: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first 4 "
+        f"{first:.4f}, last 4 {last:.4f}), grad norm {gnorms[0]:.3f} -> "
+        f"{gnorms[-1]:.3f}; {a['ms_per_step']:.1f} ms per step (median), "
+        f"{a['tokens_per_s']:.0f} tokens/s; one step profiled: "
+        f"{a['launches_per_step']} launches, device busy {busy_ms:.1f} ms "
+        f"({100 * a['busy_share']:.1f}% of the median step); peak "
+        f"{peak_gb:.2f} GB; kernel launches {counts} (training launches "
+        "none of the four)")
+    log(f"(a) losses {[round(x, 4) for x in losses]}")
+    for k, ms, c in a["top_kernels_ms"]:
+        log(f"  {ms:.3f} ms/step  x{c}  {k}")
+    del state, step_fn, prof
+    torch.cuda.empty_cache()
+
+    # (b) one step on the card against one on the host's CPU
+    cfg = train_config(CHECK_DEPTH, dtype="float32")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=CHECK_SEQ,
+                      global_batch=CHECK_BATCH)
+    t0 = time.perf_counter()
+    card = init_train_state(
+        cfg, generator=torch.Generator(device).manual_seed(1), device=device)
+    params = copy.deepcopy(card["params"]).cpu()
+    host = {"params": params, "opt": init_opt_state(params)}
+    res = {}
+    for name, st, dev in (("card", card, device),
+                          ("cpu", host, torch.device("cpu"))):
+        st, m = make_train_step(cfg, opt)(
+            st, launch_train.batch_on(dcfg, 0, dev))
+        res[name] = {"state": st, "loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"])}
+    c, h = res["card"], res["cpu"]
+    rel_loss = abs(c["loss"] - h["loss"]) / abs(h["loss"])
+    rel_gnorm = abs(c["grad_norm"] - h["grad_norm"]) / h["grad_norm"]
+    # after one step m = (1 - b1) x the clipped gradient, v its square
+    mv_rel = max(leaf_rel(c["state"]["opt"][key][k].cpu(), t)
+                 for key in ("m", "v")
+                 for k, t in h["state"]["opt"][key].items())
+    lr = h["lr"]
+    worst_all = worst_clear = 0.0
+    card_p = dict(c["state"]["params"].named_parameters())
+    for k, p in h["state"]["params"].named_parameters():
+        diff = (card_p[k].detach().cpu() - p.detach()).abs()
+        g = h["state"]["opt"]["m"][k].abs()
+        clear = g > 1e-3 * g.max()
+        worst_all = max(worst_all, float(diff.max()))
+        if clear.any():
+            worst_clear = max(worst_clear, float(diff[clear].max()))
+    b_s = time.perf_counter() - t0
+    out["b"] = {"layers": CHECK_DEPTH, "batch": CHECK_BATCH,
+                "seq": CHECK_SEQ, "loss_rel": rel_loss,
+                "grad_norm_rel": rel_gnorm, "mv_leaf_rel": mv_rel, "lr": lr,
+                "param_max_abs": worst_all,
+                "param_max_abs_clear_grad": worst_clear, "wall_s": b_s,
+                "tf32": torch.backends.cuda.matmul.allow_tf32}
+    log(f"(b) one f32 train step at depth {CHECK_DEPTH}, B={CHECK_BATCH} x "
+        f"T={CHECK_SEQ}, card vs the host's CPU (TF32 off): loss rel "
+        f"{rel_loss:.3g} (limit {CARD_CPU_LOSS_REL}), grad norm rel "
+        f"{rel_gnorm:.3g} (limit {CARD_CPU_GNORM_REL}), every leaf of m "
+        f"(the clipped gradient, scaled) and v {mv_rel:.3g} of its largest "
+        f"(limit {CARD_CPU_LEAF_REL}); updated params max abs {worst_all:.3g}"
+        f" (limit 2 x lr = {2 * lr:.3g}), where |g| > 1e-3 of its leaf's "
+        f"largest {worst_clear:.3g} (limit 1e-3 x lr = {1e-3 * lr:.3g}); "
+        f"{b_s:.1f} s")
+    if not (rel_loss <= CARD_CPU_LOSS_REL
+            and rel_gnorm <= CARD_CPU_GNORM_REL
+            and mv_rel <= CARD_CPU_LEAF_REL
+            and worst_all <= 2 * lr + 1e-6
+            and worst_clear <= 1e-3 * lr + 1e-7):
+        raise AssertionError(f"(b) card vs CPU beyond the limits: "
+                             f"{out['b']}")
+    del card, host, res, c, h, card_p
+    torch.cuda.empty_cache()
+
+    # (c) resume on the card through train() and the checkpoint store
+    cfg = train_config(CHECK_DEPTH)
+    kw = dict(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, log_every=10**9,
+              ckpt_every=10**9, device=device,
+              opt=AdamWConfig(lr=1e-3, warmup_steps=3,
+                              total_steps=RESUME_STEPS))
+    timed = {"save": [], "restore": []}
+    real_save, real_restore = CheckpointStore.save, CheckpointStore.restore
+
+    def save(self, *a, **k):
+        t = time.perf_counter()
+        real_save(self, *a, **k)
+        timed["save"].append(time.perf_counter() - t)
+
+    def restore(self, *a, **k):
+        t = time.perf_counter()
+        r = real_restore(self, *a, **k)
+        torch.cuda.synchronize()
+        timed["restore"].append(time.perf_counter() - t)
+        return r
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    CheckpointStore.save, CheckpointStore.restore = save, restore
+    try:
+        t0 = time.perf_counter()
+        _, full = launch_train.train(cfg, steps=RESUME_STEPS, **kw)
+        launch_train.train(cfg, steps=RESUME_AT, ckpt_dir=tmp, **kw)
+        _, resumed = launch_train.train(cfg, steps=RESUME_STEPS,
+                                        ckpt_dir=tmp, **kw)
+        c_s = time.perf_counter() - t0
+        ckpt_gb = sum(f.stat().st_size for f in Path(tmp).rglob("*.npy")
+                      ) / 1e9
+    finally:
+        CheckpointStore.save, CheckpointStore.restore = \
+            real_save, real_restore
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["c"] = {"layers": CHECK_DEPTH, "full": full, "resumed": resumed,
+                "save_s": timed["save"], "restore_s": timed["restore"],
+                "checkpoints_gb": ckpt_gb, "wall_s": c_s}
+    log(f"(c) train() at depth {CHECK_DEPTH}, B={TRAIN_BATCH} x "
+        f"T={TRAIN_SEQ}: stopped at step {RESUME_AT} and resumed to "
+        f"{RESUME_STEPS}, losses {resumed} == the uninterrupted run's "
+        f"{full[RESUME_AT:]}: {resumed == full[RESUME_AT:]}; save (to disk, "
+        f"waited) {[round(s, 3) for s in timed['save']]} s, restore "
+        f"{[round(s, 3) for s in timed['restore']]} s, {ckpt_gb:.2f} GB on "
+        f"disk over both checkpoints; {c_s:.1f} s")
+    if resumed != full[RESUME_AT:] or len(timed["restore"]) != 1:
+        raise AssertionError(f"(c) the resumed run differs: {resumed} vs "
+                             f"{full[RESUME_AT:]}")
+    torch.cuda.empty_cache()
+
+    # (d) the kernel route raises under grad; the blocked route trains
+    g = torch.Generator(device).manual_seed(0)
+    q, k, v = (torch.randn((1, 16, 128, 128), generator=g, device=device,
+                           dtype=torch.bfloat16) for _ in range(3))
+    q.requires_grad_(True)
+    reset_lm_counts()
+    try:
+        ops.attention(q, k, v, impl="kernel")
+    except RuntimeError as e:
+        if "no backward pass" not in str(e):
+            raise
+    else:
+        raise AssertionError("(d) ops.attention on the kernel route ran "
+                             "under grad")
+    if lm_counts()["flash_attention"] != 0:
+        raise AssertionError("(d) the refused call launched the kernel")
+    try:
+        launch_train.train(train_config(1, attention_impl="kernel"), steps=1,
+                           global_batch=1, seq_len=8, device=device)
+    except ValueError as e:
+        if "no backward" not in str(e):
+            raise
+    else:
+        raise AssertionError("(d) train() took the kernel route")
+    log("(d) ops.attention on the kernel route raises under grad (no launch)"
+        "; train() refuses attention_impl='kernel'")
+
+    # (e) the two scripts on this run's results
+    if not _SUITE:
+        raise AssertionError("(e) calibrate needs phase 'suite'")
+    summ = calibrate.summary(_SUITE)
+    rows = dict(figures.fig8(_SUITE) + figures.fig10(_SUITE))
+    for row, key in (("fig8.ata_gain_high_locality_pct", "ata_gain_high"),
+                     ("fig8.ata_gain_low_locality_pct", "ata_gain_low"),
+                     ("fig10.decoupled_latency_increase_pct",
+                      "lat_decoupled"),
+                     ("fig10.ata_latency_increase_pct", "lat_ata")):
+        if rows[row] != f"{100 * summ[key]:.1f}":
+            raise AssertionError(f"(e) calibrate {key} {summ[key]} vs "
+                                 f"{row} {rows[row]}")
+    log("(e) calibrate on phase suite's results (no new simulation; equal "
+        "to the Fig. 8 and Fig. 10 gains):")
+    for line in calibrate.table(_SUITE):
+        log("  " + line)
+    hist = Path(tempfile.mkdtemp(prefix="chip_smoke_trend_"))
+    try:
+        for name in ("sensitivity_rounds96", "simspeed_rounds64",
+                     "serving_rounds512"):
+            shutil.copy(ROOT / "benchmarks" / "baselines" / f"{name}.json",
+                        hist / f"0_baseline_{name}.json")
+        for name in ("bench_simspeed", "bench_serving"):
+            shutil.copy(REPORT.parent / f"{name}.json",
+                        hist / f"1_run_{name}.json")
+        md = REPORT.parent / "bench_trend.md"
+        with open(REPORT.parent / "bench_trend.csv", "w") as csv, \
+                contextlib.redirect_stdout(csv):
+            rc = bench_trend.main([str(hist), "--markdown", str(md)])
+        series = bench_trend._cell_series(bench_trend.load_history(str(hist)))
+    finally:
+        shutil.rmtree(hist, ignore_errors=True)
+    backends = sorted({k[1] for k in series if k[0] == "simspeed"})
+    want = ["cuda", "torch", "torch/torch_unfused", "torch_unfused"]
+    two = [k for k in series if k[0] == "simspeed" and k[1] != "cuda"]
+    if rc != 0 or backends != want or any(len(series[k]) != 2 for k in two):
+        raise AssertionError(f"(e) bench_trend: rc {rc}, simspeed series "
+                             f"{backends} ({ {k: len(series[k]) for k in two} })")
+    rows = bench_trend.trend_rows(series, 0.05)
+    out["e"] = {"calibrate": summ, "trend_cells": len(rows),
+                "trend_flagged": sum(r["flagged"] for r in rows),
+                "simspeed_series": backends}
+    log(f"(e) bench_trend over the 3 committed baselines and phase bench's 2 "
+        f"reports: {len(rows)} cells, {out['e']['trend_flagged']} beyond "
+        f"5% (informational), simspeed series {backends} (one per backend: "
+        f"the baseline's lax and this run's torch in one), exit 0; "
+        f"{md.name} written")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2896,7 +3292,8 @@ def main() -> int:
                      ("lm_prefill", lambda: phase_lm_prefill(device)),
                      ("lm_decode", lambda: phase_lm_decode(device)),
                      ("lm_serve", lambda: phase_lm_serve(device)),
-                     ("lm_families", lambda: phase_lm_families(device))):
+                     ("lm_families", lambda: phase_lm_families(device)),
+                     ("train", lambda: phase_train(device))):
         t0 = time.perf_counter()
         try:
             report[name] = fn()

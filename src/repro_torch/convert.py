@@ -8,7 +8,7 @@ here imports the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Mapping, Tuple
+from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -99,27 +99,45 @@ def _layer_index(cfg: ModelConfig):
             in enumerate(transformer.layer_keys(cfg))}
 
 
-def params(ref_params, cfg: ModelConfig, *, device
-           ) -> transformer.Transformer:
-    """The reference's parameter pytree as the port's module.
-
-    Each stacked leaf of ``params["layers"]`` is split along its leading
+def _port_leaves(ref_tree, cfg: ModelConfig
+                 ) -> Iterator[Tuple[str, np.ndarray]]:
+    """(port parameter name, array) for every leaf of a tree shaped as the
+    reference's parameters (the parameters themselves, or the optimizer's
+    moments): each stacked leaf of ``layers`` is split along its leading
     period axis onto the layers that run in that period, in the
-    reference's ``sorted(name)`` order; each of ``params["encoder"]``
-    along its layer axis onto ``encoder.<i>``. Every reference leaf must land
-    on exactly one port parameter, and every port parameter must be
-    filled: a leftover, repeated or missing leaf raises.
-    """
-    model = transformer.Transformer(cfg, device=device)
-    port = dict(model.named_parameters())
+    reference's ``sorted(name)`` order; each of ``encoder`` along its
+    layer axis onto ``encoder.<i>``."""
     index = _layer_index(cfg)
-    filled = set()
+    for path, leaf in _leaves(ref_tree):
+        stack = path[0]
+        if stack == "layers":
+            a = np.asarray(leaf)
+            for g in range(a.shape[0]):
+                i = index[(stack, path[1], g)]
+                yield ".".join((stack, str(i)) + path[2:]), a[g]
+        elif stack == "encoder":          # stacked {"p0_attn": block}
+            a = np.asarray(leaf)
+            for g in range(a.shape[0]):
+                yield ".".join((stack, str(g)) + path[2:]), a[g]
+        elif stack == "layers_rem":
+            i = index[(stack, path[1], None)]
+            yield ".".join(("layers", str(i)) + path[2:]), leaf
+        else:
+            yield ".".join(path), leaf
 
-    def put(name, a):
+
+def _fill(port: Mapping[str, torch.Tensor], ref_tree, cfg: ModelConfig,
+          device, what: str) -> None:
+    """Copy every leaf of ``ref_tree`` into its port tensor. Every
+    reference leaf must land on exactly one port tensor, and every port
+    tensor must be filled: a leftover, repeated or missing leaf raises."""
+    filled = set()
+    for name, a in _port_leaves(ref_tree, cfg):
         if name not in port:
-            raise KeyError(f"reference leaf {name} has no port parameter")
+            raise KeyError(f"{what}: reference leaf {name} has no port "
+                           "tensor")
         if name in filled:
-            raise KeyError(f"reference leaf {name} given twice")
+            raise KeyError(f"{what}: reference leaf {name} given twice")
         t = port[name]
         src = _tensor(a, device, t.dtype)
         if src.shape != t.shape:
@@ -127,28 +145,38 @@ def params(ref_params, cfg: ModelConfig, *, device
                              f"port {tuple(t.shape)}")
         t.data.copy_(src)
         filled.add(name)
-
-    for path, leaf in _leaves(ref_params):
-        stack = path[0]
-        if stack == "layers":
-            a = np.asarray(leaf)
-            for g in range(a.shape[0]):
-                i = index[(stack, path[1], g)]
-                put(".".join((stack, str(i)) + path[2:]), a[g])
-        elif stack == "encoder":          # stacked {"p0_attn": block}
-            a = np.asarray(leaf)
-            for g in range(a.shape[0]):
-                put(".".join((stack, str(g)) + path[2:]), a[g])
-        elif stack == "layers_rem":
-            i = index[(stack, path[1], None)]
-            put(".".join(("layers", str(i)) + path[2:]), leaf)
-        else:
-            put(".".join(path), leaf)
     missing = set(port) - filled
     if missing:
-        raise KeyError(f"port parameters with no reference leaf: "
+        raise KeyError(f"{what}: port tensors with no reference leaf: "
                        f"{sorted(missing)}")
+
+
+def params(ref_params, cfg: ModelConfig, *, device
+           ) -> transformer.Transformer:
+    """The reference's parameter pytree as the port's module (see
+    :func:`_port_leaves` for the map)."""
+    model = transformer.Transformer(cfg, device=device)
+    _fill(dict(model.named_parameters()), ref_params, cfg, device,
+          "parameters")
     return model
+
+
+def train_state(ref_state, cfg: ModelConfig, *, device) -> Dict[str, object]:
+    """The reference's train state ``{"params", "opt": {"m", "v",
+    "step"}}`` as the port's (``repro_torch.train``): the parameters made
+    trainable, ``m`` and ``v`` f32 tensors keyed by the parameters' names
+    (they have the parameters' tree, so the same map), ``step`` int32."""
+    model = params(ref_state["params"], cfg, device=device)
+    model.requires_grad_(True)
+    opt = {}
+    for key in ("m", "v"):
+        opt[key] = {name: torch.empty(p.shape, dtype=torch.float32,
+                                      device=device)
+                    for name, p in model.named_parameters()}
+        _fill(opt[key], ref_state["opt"][key], cfg, device, f"opt {key}")
+    opt["step"] = torch.tensor(int(np.asarray(ref_state["opt"]["step"])),
+                               dtype=torch.int32, device=device)
+    return {"params": model, "opt": opt}
 
 
 def cache(ref_cache, cfg: ModelConfig, *, device) -> transformer.Cache:

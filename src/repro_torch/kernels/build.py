@@ -71,3 +71,17 @@ def build(name: str) -> Tuple[Path, str]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (built on first call)."""
     return ctypes.CDLL(str(build(name)[0]))
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would need a backward pass through kernel
+    ``name``: grad mode is on and an input requires grad. The kernels
+    have none, and a detached output would leave the gradients silently
+    wrong; training takes the plain routes."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward pass, and an input "
+            "requires grad; train on attention_impl 'blocked' or 'ref', or "
+            "call it under torch.no_grad()")

@@ -154,7 +154,9 @@ def flash_attention(q, k, v, kv_len=None, *, causal: bool = True,
     the Hopper kernel: q, k, v of one dtype (f32 or bf16), D in
     :data:`HEAD_DIMS`, any strides with a unit last one (bf16: 16-byte
     aligned, see :func:`_check_tma`); kv_len a (B,) int32 tensor or None.
-    Returns (B, Hq, Tq, D) in q's dtype.
+    Returns (B, Hq, Tq, D) in q's dtype. The kernel has no backward
+    pass: a CUDA call raises when grad mode is on and an input requires
+    grad (:func:`build.refuse_grad`).
     """
     global launches
     if q.device.type == "cpu":
@@ -163,6 +165,7 @@ def flash_attention(q, k, v, kv_len=None, *, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
                          f"{q.device}")
+    build.refuse_grad("flash_attention", q, k, v)
     _check(q, k, v, kv_len, window)
     B, Hq, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]

@@ -110,6 +110,8 @@ def wkv6(r, k, v, w, u, initial_state=None, *, chunk: int = 64):
     kernel: r, k, v, w each f32 or bf16 with a unit last stride; u (H, K)
     and initial_state (B, H, K, V) contiguous f32; K, V <= 64. ``chunk``
     does not change the result (signature parity with the reference).
+    The kernel has no backward pass: a CUDA call raises when grad mode is
+    on and an input requires grad (:func:`build.refuse_grad`).
     """
     global launches
     del chunk
@@ -117,6 +119,7 @@ def wkv6(r, k, v, w, u, initial_state=None, *, chunk: int = 64):
         return wkv6_plain(r, k, v, w, u, initial_state)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 runs on cuda or cpu tensors, got {r.device}")
+    build.refuse_grad("wkv6", r, k, v, w, u, initial_state)
     _check(r, k, v, w, u, initial_state)
     B, H, T, K = r.shape
     V = v.shape[-1]

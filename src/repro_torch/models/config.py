@@ -63,7 +63,7 @@ class ModelConfig:
     attn_chunk: int = 512             # q/kv chunk for blocked attention
     wkv_chunk: int = 64
     norm_eps: float = 1e-6
-    remat: str = "layer"              # none | layer (no effect: inference)
+    remat: str = "layer"              # none | layer (checkpoint per period)
     tie_embeddings: bool = False
 
     def __post_init__(self):

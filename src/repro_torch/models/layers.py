@@ -3,8 +3,9 @@
 The port of the reference's ``models/layers.py``. Parameters live in
 small ``nn.Module``s whose attribute names are the reference's leaf names
 (``Dense.kernel``/``bias``, ``RMSNorm.scale``); the computations are plain
-functions on tensors, as in the reference. Parameters never require
-gradients: the port serves inference only.
+functions on tensors, as in the reference. Parameters are made without
+gradients (serving needs none); training turns them on for the model it
+owns (``repro_torch.train.init_train_state``).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Model assembly: block zoo -> layer stack -> LM / enc-dec.
 
-The port of the reference's ``models/transformer.py`` for inference.
+The port of the reference's ``models/transformer.py``.
 Parameters are one :class:`Transformer` module whose parameter names
 carry the reference's leaf names (``embed.table``, ``lm_head.kernel``,
 ``layers.<i>.attn.wq.kernel``, ``layers.<i>.rwkv.u``,
@@ -11,8 +11,13 @@ stacks them by pattern period and runs a period's blocks in
 ``sorted(name)`` order, then the remainder layers, and :func:`layer_keys`
 names each layer's place there (``repro_torch.convert.params`` maps one
 onto the other). ``encoder`` holds an encoder-decoder's encoder blocks.
-A Python loop over layers takes the place of ``lax.scan``; remat has no
-counterpart, because inference needs none.
+A Python loop over layers takes the place of ``lax.scan``. With
+``cfg.remat == "layer"``, a forward that gradients will flow through
+(grad mode on, the blocks' parameters requiring grad: training) runs each
+pattern period, as the reference scans them, under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): its
+activations are recomputed in backward, not kept. The numbers are the
+same either way; inference runs the plain loop.
 
 Public API:
   init_params(cfg, generator=..., device=...)   -> Transformer
@@ -36,6 +41,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.simulator import resolve_device
 from repro_torch.models import attention as attn
@@ -225,16 +231,32 @@ def _block_forward(p: Block, cfg: ModelConfig, x, *, positions,
     return x + m, aux
 
 
-def _run_stack(blocks, cfg: ModelConfig, x, *, positions, causal=True,
-               enc_out=None, kv_repeat=1):
+def _run_blocks(blocks, cfg: ModelConfig, x, **kw):
     """x through ``blocks`` in order; returns (x, the summed aux loss)."""
     aux = torch.zeros((), device=x.device)
     for p in blocks:
-        x, a = _block_forward(p, cfg, x, positions=positions, causal=causal,
-                              enc_out=enc_out, kv_repeat=kv_repeat)
+        x, a = _block_forward(p, cfg, x, **kw)
         if a is not None:
             aux = aux + a
     return x, aux
+
+
+def _run_stack(blocks, cfg: ModelConfig, x, *, period: int, n_stacked: int,
+               **kw):
+    """x through ``blocks``; returns (x, the summed aux loss). The first
+    ``n_stacked`` blocks are the reference's scanned periods of
+    ``period`` blocks each; under remat (see the module docstring) each
+    period runs in ``torch.utils.checkpoint``, the rest as they are."""
+    if not (cfg.remat == "layer" and torch.is_grad_enabled()
+            and any(p.requires_grad for p in blocks.parameters())):
+        return _run_blocks(blocks, cfg, x, **kw)
+    aux = torch.zeros((), device=x.device)
+    for i in range(0, n_stacked, period):
+        x, a = checkpoint(_run_blocks, blocks[i:i + period], cfg, x,
+                          use_reentrant=False, **kw)
+        aux = aux + a
+    x, a = _run_blocks(blocks[n_stacked:], cfg, x, **kw)
+    return x, aux + a
 
 
 # ---------------------------------------------------------------------------
@@ -261,7 +283,9 @@ def encode(params: Transformer, cfg: ModelConfig, enc_frames):
     x = torch.as_tensor(enc_frames, device=_device_of(params)).to(
         layers.dtype_of(cfg.dtype))
     pos = torch.arange(x.shape[1], device=x.device)
-    x, _ = _run_stack(params.encoder, cfg, x, positions=pos, causal=False)
+    x, _ = _run_stack(params.encoder, cfg, x, period=1,
+                      n_stacked=len(params.encoder), positions=pos,
+                      causal=False)
     return layers.rmsnorm(params.enc_norm, x, cfg.norm_eps)
 
 
@@ -281,7 +305,9 @@ def forward_hidden(params: Transformer, cfg: ModelConfig, tokens, *,
     enc_out = _enc_out(params, cfg, enc_frames)
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    return _run_stack(params.layers, cfg, x, positions=positions,
+    pat, n_per, _ = _pattern_layout(cfg)
+    return _run_stack(params.layers, cfg, x, period=len(pat),
+                      n_stacked=n_per * len(pat), positions=positions,
                       enc_out=enc_out, kv_repeat=cfg.kv_repeat)
 
 

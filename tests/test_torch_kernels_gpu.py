@@ -486,3 +486,33 @@ def test_wkv6_chained_calls_bit_equal_one_call(cuda_device, T, split):
     torch.cuda.synchronize()
     assert torch.equal(torch.cat(outs, 2), o)
     assert torch.equal(state, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["attention", "wkv6"])
+def test_kernel_route_raises_under_grad(cuda_device, kernel):
+    """The LM kernels have no backward pass: on CUDA tensors the kernel
+    route raises when grad mode is on and an input requires grad, and
+    runs under ``torch.no_grad()``; the plain route differentiates."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(cuda_device).manual_seed(0)
+    if kernel == "attention":
+        args = [torch.randn((1, 2, 64, 64), generator=g, device=cuda_device)
+                for _ in range(3)]
+        fn = ops.attention
+    else:
+        r, k, v = (torch.randn((1, 2, 16, 64), generator=g,
+                               device=cuda_device) for _ in range(3))
+        w = -torch.rand((1, 2, 16, 64), generator=g, device=cuda_device)
+        args = [r, k, v, w, torch.randn((2, 64), generator=g,
+                                        device=cuda_device)]
+        fn = ops.wkv6
+    args[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        fn(*args, impl="kernel")
+    with torch.no_grad():
+        fn(*args, impl="kernel")
+    out = fn(*args, impl="ref")
+    out = out[0] if isinstance(out, tuple) else out
+    out.float().sum().backward()
+    assert args[0].grad is not None and torch.isfinite(args[0].grad).all()
