@@ -101,7 +101,7 @@ script then exits non-zero with no result line):
    baseline's; (e) ``check_regression`` on both reports. ``ata_probe_rank``
    launches in (b) and (c) counted from 0 and exactly as due;
 10. the serving main path at ``fig_serving_scale.py``'s shape cut to a
-    sixteenth of its depth: one 16-shard chat+rag stream of about 62,500
+    thirty-second of its depth: one 16-shard chat+rag stream of about 31,250
     requests replayed under ``ata`` at B=4, with the launch counters
     zeroed just before and read just after, and a profile of 16
     sub-rounds;
@@ -115,7 +115,7 @@ script then exits non-zero with no result line):
     WKV6 outputs that differ from the exact ones;
 13. ``ModelServer`` at the reference launcher's defaults cut to half its
     requests (8 requests, 4 shards, block 16, 8 decode steps, ``ata``)
-    for both models at full width and an eighth of their depth, launch
+    for both models at full width and 2 layers each, launch
     counters zeroed just before and read just after: the directory's
     stats against ``run_workload``, and one request served cold and warm;
 14. the LM substrate's other eight families (``LM_FAMILIES``: four
@@ -130,7 +130,7 @@ script then exits non-zero with no result line):
     ``decode_step`` chain's; the RG-LRU scan's time at T=4096;
 15. training (``phase_train``): (a) qwen3-0.6b at full width and depth
     (28 layers, vocab 151,936), f32 masters, bf16 compute, remat per
-    layer, the blocked route, 12 steps of B=4 x T=512 from the data
+    layer, the blocked route, 8 steps of B=4 x T=512 from the data
     pipeline with a 3-step warmup: losses and grad norms finite, the mean
     of the last 4 losses below the first 4, the four kernels' counts read
     from 0 (training launches none), ms per step, tokens/s, peak memory
@@ -144,7 +144,24 @@ script then exits non-zero with no result line):
     refusing it; (e) ``launch/calibrate`` on phase 4's suite, equal to
     its Fig. 8 / Fig. 10 gains, and ``launch/bench_trend`` over the
     committed baselines and phase 9's reports, one series per backend;
-16. the per-phase times, the card line again, a ``kernels`` JSON line,
+16. multi-card (``phase_multicard``; n = ``torch.cuda.device_count()``):
+    (a) phase 6's solo grid split over cuda:0..n-1 (over [cuda:0] x 4 on
+    one card: the same split-and-join code) by ``SweepGrid.run(devices=)``,
+    every point bit-equal to the one-device run, ``n_devices`` = D,
+    ``ata_probe_rank`` launched exactly as the slices owe (counted from
+    0); (b)-(d) n NCCL ranks started by ``sharding.compat.spawn``, as
+    ``launch/train.py --mesh`` starts its ranks (no fallback to ``gloo``
+    or the CPU; a one-card host runs a one-rank group): (b) qwen3-0.6b at full width and depth, "dp" with
+    ZeRO-1 through ``train()``, global B=4n x T=512, 3 steps (ms per step,
+    tokens/s, peak GB per rank, launches per profiled step), and one f32
+    step at depth 2 against the one-process step (loss rel 1e-6,
+    parameters to phase 15 (b)'s limits); (c) ``all_reduce_compressed``
+    on the reference test's 8 x 64 rows, bit-equal to a host emulation
+    and within 2 x scale of the exact mean; (d) one "tp" step on (2, n/2)
+    for n >= 4, else (1, n), within 1e-3 of (b)'s "dp" loss, saved,
+    restored onto world 1, one more step against the step taken on the
+    mesh without the round-trip;
+17. the per-phase times, the card line again, a ``kernels`` JSON line,
     and as the last line ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke_report.json``.
@@ -638,15 +655,15 @@ PROBING_ARCHS = ("ata", "ata_bypass", "ata_fifo", "victim")
 
 @contextlib.contextmanager
 def recorded_grid_runs():
-    """Records (points, results) of every ``SweepGrid.run`` made inside
-    the block, in order. An instrument of the checks: it launches
-    nothing and counts nothing."""
+    """Records (points, results, D) of every ``SweepGrid.run`` made inside
+    the block, in order, D the devices it split over. An instrument of
+    the checks: it launches nothing and counts nothing."""
     from repro_torch.core import sweep
     runs, orig = [], sweep.SweepGrid.run
 
     def run(self, *args, **kwargs):
         out = orig(self, *args, **kwargs)
-        runs.append((list(self.points), out.results))
+        runs.append((list(self.points), out.results, out.report.n_devices))
         return out
 
     sweep.SweepGrid.run = run
@@ -657,23 +674,35 @@ def recorded_grid_runs():
 
 
 def probe_launches_due(runs, device) -> int:
-    """The ``ata_probe_rank`` launches that these grid runs owe: within a
-    run, every batched pass launches the kernel once a round for each
+    """The ``ata_probe_rank`` launches that these grid runs owe. A run
+    makes one batched pass per (bucket, device): a bucket is one
+    (architecture family, NoC family, geometry structure, trace kind,
+    probe backend), cut into D contiguous slices of ceil(B / D) points
+    (D = 1 on one card). A pass launches the kernel once a round for each
     probing architecture among its points (each member of a stacked
-    family runs its L1 stage on its own run of the pass's points). A
-    pass is one (architecture family, NoC family, geometry structure,
-    trace kind, probe backend); a trace kind fixes the rounds."""
-    from repro_torch.core import get_noc, trace_kind
+    family runs its L1 stage on its own run of the pass's points); a
+    trace kind fixes the rounds."""
+    from repro_torch.core import SweepGrid, trace_kind
     from repro_torch.core.geometry import geom_structure
     from repro_torch.core.probe import resolve_probe_backend
     due = 0
-    for points, _ in runs:
-        member_passes = {
-            (p.arch, get_noc(p.noc).stack_key, geom_structure(p.geom),
-             trace_kind(p.trace))
-            for p in points if p.arch in PROBING_ARCHS
-            and resolve_probe_backend(p.probe_backend, device) == "cuda"}
-        due += sum(kind[0][0] for *_, kind in member_passes)
+    for points, _, D in runs:
+        grid = SweepGrid.from_points(points)
+        arch_of, noc_of = grid._arch_group_of(), grid._noc_group_of()
+        buckets = {}
+        for p in points:
+            key = (arch_of[p.arch], noc_of[p.noc], geom_structure(p.geom),
+                   trace_kind(p.trace),
+                   resolve_probe_backend(p.probe_backend, device))
+            buckets.setdefault(key, []).append(p)
+        for key, pts in buckets.items():
+            if key[4] != "cuda":
+                continue
+            per = -(-len(pts) // D)
+            for j in range(D):
+                part = pts[j * per:(j + 1) * per]
+                due += key[3][0][0] * len({p.arch for p in part
+                                            if p.arch in PROBING_ARCHS})
     return due
 
 
@@ -869,8 +898,9 @@ SENSITIVITY = ROOT / "benchmarks" / "baselines" / "sensitivity_rounds96.json"
 SENSITIVITY_METRICS = ("ipc", "l1_hit_rate", "remote_hit_rate", "noc_flits",
                        "l1_latency")
 #: cut rounds of the probe-backend comparisons (phases 4 and 5), cut
-#: from 256 to make room for the training phase (PERF.md section 7)
-ZOO_BACKEND_ROUNDS = 128
+#: from 256 to make room for the training phase and to 64 for the
+#: multicard phase (PERF.md section 7)
+ZOO_BACKEND_ROUNDS = 64
 #: phase 5's per-point simulate() of the sensitivity baseline's zoo
 #: points, {(arch, geometry, noc): SimResult}, reused by phase 6
 _ZOO_MEMO = {}
@@ -999,6 +1029,8 @@ SOLO_EXECUTABLES = 9         # the baseline's solo passes: 3 families x 3
 CHECKED_MIXES = (("cfd", "HS3D"), ("cfd", "b+tree", "HS3D"))
 #: the sensitivity report of phase 6, for the telemetry phase
 _SWEEP_REPORT = {}
+#: the report's solo section (points, results), for the multicard phase
+_SWEEP_SOLO = []
 
 
 def same_results(got, want, where: str) -> None:
@@ -1079,7 +1111,7 @@ def phase_sweep(device) -> dict:
                                            rounds=cfg["rounds"]), kernel=0)
     memo, n_new, n_checked = _ZOO_MEMO, 0, 0
     for name in ("solo", "noc"):
-        points, results = section_runs[name]
+        points, results, _ = section_runs[name]
         for p, r in zip(points, results):
             if not np.array_equal(p.trace.addr, trace.addr):
                 raise AssertionError(f"{name}: a point off HS3D kernel 0")
@@ -1095,7 +1127,7 @@ def phase_sweep(device) -> dict:
     composed = {apps: WorkloadMix(apps=apps, rounds=cfg["rounds"]).compose(
         trace.n_cores) for apps in CHECKED_MIXES}
     checked = {(a, apps) for a in ("ata", "victim") for apps in composed}
-    points, results = section_runs["mix"]
+    points, results, _ = section_runs["mix"]
     for p, r in zip(points, results):
         for apps, tr in composed.items():
             if ((p.arch, apps) in checked and p.trace.n_apps == len(apps)
@@ -1116,7 +1148,7 @@ def phase_sweep(device) -> dict:
     # against the reference's per-point simulate()
     with open(NOC_FIXTURE) as f:
         noc_fix = json.load(f)
-    points, results = section_runs["noc"]
+    points, results, _ = section_runs["noc"]
     noc_worst, n_fix = 0.0, 0
     for p, r in zip(points, results):
         want = noc_fix["results"].get(p.arch, {}).get(p.noc, {}).get(
@@ -1169,6 +1201,7 @@ def phase_sweep(device) -> dict:
         f"{unfair['ata']:.4f}; ata_vs_private {ratio:.4f}")
 
     _SWEEP_REPORT.update(rep)
+    _SWEEP_SOLO[:] = section_runs["solo"]
     launches = report_launches + pair_launches
     log(f"ata_probe_rank launches on the sweep phase's main path (the "
         f"report and the pair): {launches}")
@@ -1596,7 +1629,7 @@ def phase_bench(device) -> dict:
         raise AssertionError(f"(b) simspeed gate: {failures}")
     if len(runs) != 2 * len(SIMSPEED_BACKENDS):
         raise AssertionError(f"(b) {len(runs)} grid runs")
-    for i, (points, results) in enumerate(runs[1:], 1):
+    for i, (points, results, _) in enumerate(runs[1:], 1):
         for p, (r, w) in enumerate(zip(results, runs[0][1])):
             same_results(r, w, f"(b) run {i} ({points[p].probe_backend}) "
                          f"point {p}")
@@ -1732,9 +1765,9 @@ SCALE_MIX = ("chat", "rag")
 #: a sixteenth of that depth. The 1M replay took 217-238 s on one H100; a
 #: quarter took 78-91 s, and with it and the other LM families the whole
 #: script's phases took 1,332 s on a slow host, over its 1,200 s limit
-#: (PERF.md §5); an eighth took 31-44 s, halved again for the training
-#: phase
-SCALE_REQUESTS = 62_500
+#: (PERF.md §5); an eighth took 31-44 s, halved for the training phase
+#: and again for the multicard phase (a thirty-second)
+SCALE_REQUESTS = 31_250
 SCALE_SLOTS = 4
 #: rounds of the scale stream; None: calibrated as fig_serving_scale.py
 #: does, so the stream carries at least SCALE_REQUESTS requests
@@ -2494,14 +2527,14 @@ SERVE_STATS = ("local_hits", "remote_hits", "recomputed_blocks",
                "directory_sync_entries")
 
 
-#: ModelServer's models: full width, an eighth of the depth (4 of
-#: qwen3-0.6b's 28 layers, 4 of rwkv6-3b's 32; a quarter before the
-#: training phase came).
+#: ModelServer's models: full width, 2 of qwen3-0.6b's 28 layers and 2
+#: of rwkv6-3b's 32 (a quarter before the training phase came, an eighth
+#: before the multicard phase).
 #: Decode is host-bound at ~50-73 ms a token, and 8 requests at full
 #: depth took 169-232 s of the script's 1,200 s (PERF.md section 5);
 #: what the phase checks (the directory's stats, warm == cold) does not
 #: depend on the depth
-LM_SERVE_DEPTH = {"qwen3-0.6b": 4, "rwkv6-3b": 4}
+LM_SERVE_DEPTH = {"qwen3-0.6b": 2, "rwkv6-3b": 2}
 
 
 def serve_model(arch, device):
@@ -2521,7 +2554,7 @@ def serve_model(arch, device):
 def phase_lm_serve(device) -> dict:
     """``ModelServer`` at the reference launcher's defaults cut to half
     its 16 synthetic requests (8 requests, 4 shards, block 16, 8 decode
-    steps, ``ata``) for both models at an eighth of their depth
+    steps, ``ata``) for both models at 2 layers each
     (``LM_SERVE_DEPTH``); the directory's stats against
     ``run_workload``; one request served cold and then warm."""
     import torch
@@ -2905,7 +2938,8 @@ def phase_lm_families(device) -> dict:
 # phase 15: training
 # ---------------------------------------------------------------------------
 TRAIN_ARCH = "qwen3-0.6b"
-TRAIN_STEPS = 12
+#: cut from 12 to make room for the multicard phase (PERF.md section 7)
+TRAIN_STEPS = 8
 TRAIN_BATCH, TRAIN_SEQ = 4, 512
 #: a warmup short enough that a dozen steps train (the default's 100
 #: steps would keep the learning rate near 0)
@@ -3254,6 +3288,392 @@ def phase_train(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: multi-card
+# ---------------------------------------------------------------------------
+#: (b) data-parallel training at full width and depth: per rank B=4 x
+#: T=512, as phase train's (a); 3 steps
+MC_STEPS = 3
+#: (b)-(d) the one-process comparisons: depth 2, f32, global B=4 x T=128
+MC_CHECK_BATCH, MC_CHECK_SEQ = 4, 128
+#: (b) a DP step against the one-process step: the gradient is summed
+#: over the ranks in another order, so the loss (the same forward) to rel
+#: 1e-6 and the parameters to phase train's (b) limits
+MC_LOSS_REL = 1e-6
+#: (d) the "tp" step's loss against the "dp" step's (the reference's own
+#: bar, tests/test_sharding.py)
+MC_TP_DP = 1e-3
+MC_TIMEOUT_S = 420
+
+
+def mc_config(depth=None, **over):
+    return train_config(depth, **over)
+
+
+def mc_params_close(got: dict, want: dict, m_want: dict, lr: float):
+    """(max abs over every element, over the elements whose gradient is
+    clear of the noise) between two parameter sets: phase train's (b)
+    rule (every element to 2 x lr, those whose |m| is above 1e-3 of its
+    leaf's largest to 1e-3 x lr)."""
+    worst_all = worst_clear = 0.0
+    for k, w in want.items():
+        diff = (got[k].float() - w.float().to(got[k].device)).abs()
+        g = m_want[k].abs().to(diff.device)
+        clear = g > 1e-3 * g.max()
+        worst_all = max(worst_all, float(diff.max()))
+        if clear.any():
+            worst_clear = max(worst_clear, float(diff[clear].max()))
+    return worst_all, worst_clear
+
+
+def _full(t):
+    return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach()
+
+
+def multicard_rank(n: int, ckpt_dir: str, backend: str = "nccl") -> dict:
+    """One rank of phase multicard (NCCL: rank r on cuda:r): (b) the "dp"
+    ZeRO-1 training at full width and depth through ``train()``, and one
+    depth-2 f32 step against the one-process step; (c) the compressed
+    all-reduce against a host emulation; (d) one "tp" step, a save, a
+    restore onto world 1 and one more step against the step taken
+    without the round-trip. Returns what rank 0 measured."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.data import DataConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim import AdamWConfig, compression
+    from repro_torch.sharding.compat import make_mesh, rank_device
+    from repro_torch.sharding.rules import make_rules
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.step import local_batch
+    rank = dist.get_rank()
+    device = rank_device(backend)
+    out = {"rank": rank, "world": n}
+
+    # (b) full width and depth, "dp" with ZeRO-1 over the n ranks
+    cfg = mc_config()
+    mesh = make_mesh((n,), ("data",))
+    opt = AdamWConfig(**TRAIN_OPT)
+    walls, observe = [], launch_train.Watchdog.observe
+
+    def record(self, dt):             # the step walls train() measures
+        walls.append(dt)
+        return observe(self, dt)
+    launch_train.Watchdog.observe = record
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        state, losses = launch_train.train(
+            cfg, steps=MC_STEPS, global_batch=TRAIN_BATCH * n,
+            seq_len=TRAIN_SEQ, opt=opt, log_every=10**9, device=device,
+            mesh=mesh, profile="dp")
+    finally:
+        launch_train.Watchdog.observe = observe
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rules = make_rules(cfg, mesh, batch_size=TRAIN_BATCH * n, profile="dp")
+    step_fn = make_train_step(cfg, opt, mesh=mesh, rules=rules)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH * n)
+    batch = local_batch(launch_train.batch_on(dcfg, MC_STEPS, device),
+                        mesh, rules)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t1) * 1e3
+    per_kernel = device_kernels(prof)
+    nccl = sum(c for _, c, k in per_kernel if "nccl" in k.lower())
+    med = float(np.median(walls))
+    out["b"] = {
+        "layers": cfg.n_layers, "global_batch": TRAIN_BATCH * n,
+        "seq": TRAIN_SEQ, "losses": losses, "step_wall_s": walls,
+        "ms_per_step": med * 1e3,
+        "tokens_per_s": TRAIN_BATCH * n * TRAIN_SEQ / med,
+        "peak_gb": peak_gb, "train_s": train_s,
+        "launches_per_step": sum(c for _, c, _ in per_kernel),
+        "nccl_launches_per_step": nccl,
+        "busy_ms_per_step": sum(d for d, _, _ in per_kernel) / 1e3,
+        "profiled_step_ms": prof_ms,
+        "m_shard_shape": list(next(iter(
+            state["opt"]["m"].values())).to_local().shape)}
+    if rank == 0:
+        log(f"  rank 0: (b) {out['b']['ms_per_step']:.1f} ms a step, peak "
+            f"{peak_gb:.2f} GB")
+    del state, step_fn, prof
+    torch.cuda.empty_cache()
+
+    # (b) depth 2, f32: one DP step against the one-process step
+    cfg = mc_config(CHECK_DEPTH, dtype="float32")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=MC_CHECK_SEQ,
+                      global_batch=MC_CHECK_BATCH)
+    gbatch = launch_train.batch_on(dcfg, 0, device)
+    gen = torch.Generator(device).manual_seed(1)
+    rules = make_rules(cfg, mesh, batch_size=MC_CHECK_BATCH, profile="dp")
+    st = init_train_state(cfg, generator=gen, device=device, mesh=mesh,
+                          rules=rules)
+    st, m = make_train_step(cfg, opt, mesh=mesh, rules=rules)(
+        st, local_batch(gbatch, mesh, rules))
+    # the comparisons stay on the card: copies of ~2 GB to the host and
+    # elementwise work there took most of the phase
+    dp = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+          "params": {k: p.detach()
+                     for k, p in st["params"].named_parameters()},
+          "m": {k: _full(t) for k, t in st["opt"]["m"].items()}}
+    one = None
+    if rank == 0:
+        st1 = init_train_state(cfg, generator=torch.Generator(
+            device).manual_seed(1), device=device)
+        st1, m1 = make_train_step(cfg, opt)(st1, gbatch)
+        one = {"loss": float(m1["loss"]), "lr": float(m1["lr"]),
+               "grad_norm": float(m1["grad_norm"]),
+               "params": {k: p.detach()
+                          for k, p in st1["params"].named_parameters()},
+               "m": st1["opt"]["m"]}
+        worst_all, worst_clear = mc_params_close(
+            dp["params"], one["params"], one["m"], one["lr"])
+        out["b_check"] = {
+            "loss_dp": dp["loss"], "loss_one": one["loss"],
+            "loss_rel": abs(dp["loss"] - one["loss"]) / abs(one["loss"]),
+            "grad_norm_rel": abs(dp["grad_norm"] - one["grad_norm"])
+            / one["grad_norm"],
+            "m_leaf_rel": max(leaf_rel(dp["m"][k], one["m"][k])
+                              for k in one["m"]),
+            "param_max_abs": worst_all, "param_max_abs_clear": worst_clear,
+            "lr": one["lr"]}
+        del st1, one
+    del st, dp["params"], dp["m"]
+    torch.cuda.empty_cache()
+
+    # (c) the compressed all-reduce: the reference test's 8 x 64 normal
+    # rows (here numpy's, seed 0) split over the ranks
+    g_all = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((8, 64)).astype(np.float32))
+    rows = np.array_split(np.arange(8), n)
+    rmax = len(rows[0])        # every rank reduces one shape: pad with 0
+
+    def padded(r):
+        return torch.cat([g_all[rows[r]],
+                          torch.zeros(rmax - len(rows[r]), 64)])
+    mine = padded(rank).to(device)
+    red, err = compression.all_reduce_compressed(
+        {"g": mine}, {"g": torch.zeros_like(mine)})
+    if rank == 0:
+        # host emulation: the ranks' chunks, padded to one shape
+        chunks = [padded(r) for r in range(n)]
+        scales = [compression.compress(c, torch.zeros_like(c))[1]
+                  for c in chunks]
+        s_shared = torch.stack(scales).max()
+        qs = [torch.clamp(torch.round(c / s_shared), -127, 127).to(
+            torch.int8) for c in chunks]
+        total = sum(q.int() for q in qs)
+        want = (total.float() * s_shared / n)[:len(rows[0])]
+        exact = torch.stack(chunks).mean(0)[:len(rows[0])]
+        got = red["g"].cpu()
+        out["c"] = {
+            "bit_equal_to_host": bool(torch.equal(got, want)),
+            "error_bit_equal": bool(torch.equal(
+                err["g"].cpu(), chunks[0][:len(rows[0])]
+                - qs[0][:len(rows[0])].float() * s_shared)),
+            "max_abs_err": float((got - exact).abs().max()),
+            "scale": float(g_all.abs().max()) / 127.0,
+            "int_total_max": int(total.abs().max())}
+
+    if rank == 0:
+        log(f"  rank 0: (b) check {out['b_check']}; (c) {out['c']}")
+
+    # (d) "tp" on (2, n/2) for n >= 4, else (1, n): one step, save,
+    # restore onto world 1 and step there, against the step taken on
+    # the mesh without the round-trip
+    shape = launch_train.test_mesh_shape(n)
+    tmesh = make_test_mesh(*shape, device_type=device.type)
+    rules = make_rules(cfg, tmesh, batch_size=MC_CHECK_BATCH, profile="tp")
+    st = init_train_state(cfg, generator=torch.Generator(
+        device).manual_seed(1), device=device, mesh=tmesh, rules=rules)
+    step = make_train_step(cfg, opt, mesh=tmesh, rules=rules)
+    t0 = time.perf_counter()
+    st, m = step(st, local_batch(gbatch, tmesh, rules))
+    tp_loss = float(m["loss"])
+    tp_first_s = time.perf_counter() - t0
+    store = CheckpointStore(ckpt_dir)
+    t0 = time.perf_counter()
+    store.save(1, st, wait=True)
+    save_s = time.perf_counter() - t0
+    batch2 = launch_train.batch_on(dcfg, 1, device)
+    t0 = time.perf_counter()
+    st, m2 = step(st, local_batch(batch2, tmesh, rules))
+    tp_second_ms = (time.perf_counter() - t0) * 1e3
+    on_mesh = {"loss": float(m2["loss"]),
+               "params": {k: _full(p)
+                          for k, p in st["params"].named_parameters()},
+               "m": {k: _full(t) for k, t in st["opt"]["m"].items()}}
+    if rank == 0:
+        like = init_train_state(cfg, generator=torch.Generator(
+            device).manual_seed(2), device=device)
+        t0 = time.perf_counter()
+        st1, at = store.restore(like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        st1, m1 = make_train_step(cfg, opt)(st1, batch2)
+        lr = float(m1["lr"])
+        worst_all, worst_clear = mc_params_close(
+            {k: p.detach() for k, p in st1["params"].named_parameters()},
+            on_mesh["params"], on_mesh["m"], lr)
+        out["d"] = {
+            "mesh": list(shape), "loss_tp": tp_loss,
+            "loss_dp": dp["loss"],
+            "tp_vs_dp": abs(tp_loss - dp["loss"]),
+            "first_step_s": tp_first_s, "second_step_ms": tp_second_ms,
+            "save_s": save_s, "restore_s": restore_s, "restored_step": at,
+            "resumed_loss": float(m1["loss"]),
+            "on_mesh_loss": on_mesh["loss"],
+            "resume_loss_rel": abs(float(m1["loss"]) - on_mesh["loss"])
+            / abs(on_mesh["loss"]),
+            "param_max_abs": worst_all, "param_max_abs_clear": worst_clear,
+            "lr": lr}
+    dist.barrier()
+    return out if rank == 0 else {"rank": rank}
+
+
+def phase_multicard(device) -> dict:
+    """Multi-card (n = the cards this host has): (a) the sweep phase's
+    solo grid split over cuda:0..n-1 (over [cuda:0] x 4 on one card: the
+    same split-and-join code), every point bit-equal to the one-device
+    run, ``n_devices`` = D, ``ata_probe_rank`` launched exactly as the
+    slices owe; (b)-(d) n NCCL ranks (``multicard_rank``, started by
+    ``spawn``, as ``launch/train.py --mesh`` starts its ranks): "dp"
+    ZeRO-1 training at full width
+    and depth, a DP step against the one-process step, the compressed
+    all-reduce against a host emulation, a "tp" step against the "dp"
+    one, and a checkpoint re-meshed onto world 1. A one-card host runs a
+    one-rank NCCL group: NCCL's calls, no multi-rank semantics."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.core import SweepGrid
+    from repro_torch.kernels import ata_probe_rank as kmod
+    from repro_torch.sharding.compat import spawn
+    card = card_line()
+    n = torch.cuda.device_count()
+    out = {"cards": n}
+
+    # (a) the split sweep
+    if not _SWEEP_SOLO:
+        raise AssertionError("(a) needs phase sweep's solo section")
+    points, one, _ = _SWEEP_SOLO
+    solo = _SWEEP_REPORT["sweep"]
+    if solo["n_devices"] != 1:
+        raise AssertionError(f"(a) phase sweep's solo section ran on "
+                             f"{solo['n_devices']} devices, want one")
+    devices = ([torch.device("cuda", i) for i in range(n)] if n > 1
+               else [torch.device("cuda", 0)] * 4)
+    grid = SweepGrid.from_points(points)
+    with recorded_grid_runs() as runs:
+        kmod.launches = 0
+        t0 = time.perf_counter()
+        run = grid.run(devices=devices)
+        torch.cuda.synchronize()
+        split_s = time.perf_counter() - t0
+        launches = kmod.launches
+    due = probe_launches_due(runs, device)
+    for p, got, want in zip(points, run.results, one):
+        same_results(got, want, f"(a) {p.arch} l1_ways={p.geom.l1_ways} "
+                     f"noc_bw={p.geom.noc_bw} hide={p.geom.hide}")
+    if run.report.n_devices != len(devices) or launches != due:
+        raise AssertionError(f"(a) n_devices {run.report.n_devices} (want "
+                             f"{len(devices)}), ata_probe_rank {launches} "
+                             f"launches (owed {due})")
+    out["a"] = {"devices": [str(d) for d in devices],
+                "n_devices": run.report.n_devices, "points": len(points),
+                "passes": run.report.n_executables, "launches": launches,
+                "wall_s": split_s,
+                "one_device_wall_s": solo["wall_s"]}
+    log(f"(a) the sweep phase's solo grid ({len(points)} points, "
+        f"{run.report.n_executables} buckets) split over "
+        f"{[str(d) for d in devices]}: D = {run.report.n_devices}, every "
+        f"point bit-equal to the one-device run, ata_probe_rank {launches} "
+        f"launches (= owed), {split_s:.2f} s (phase sweep's run on cuda:0 "
+        f"alone: "
+        f"{out['a']['one_device_wall_s']:.2f} s); {card}")
+
+    # (b)-(d) n NCCL ranks
+    _MODELS.clear()
+    torch.cuda.empty_cache()
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_mc_")
+    try:
+        t0 = time.perf_counter()
+        res = spawn(multicard_rank, n, backend="nccl",
+                    timeout_s=MC_TIMEOUT_S, args=(n, ckpt))
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    r0 = res[0]
+    out.update({k: r0[k] for k in ("b", "b_check", "c", "d")})
+    out["ranks_s"] = ranks_s
+    semantics = ("one-rank NCCL group: NCCL's calls, no multi-rank "
+                 "semantics" if n == 1 else f"{n} NCCL ranks")
+    b, bc, c, d = out["b"], out["b_check"], out["c"], out["d"]
+    log(f"(b) {TRAIN_ARCH} 'dp' + ZeRO-1 training at full width and depth "
+        f"({b['layers']} layers, f32 masters, bf16 compute, remat per layer)"
+        f" on {semantics}: global B={b['global_batch']} x T={b['seq']}, "
+        f"{MC_STEPS} steps, losses {[round(x, 4) for x in b['losses']]}; "
+        f"{b['ms_per_step']:.1f} ms a step (median), "
+        f"{b['tokens_per_s']:.0f} tokens/s, peak {b['peak_gb']:.2f} GB per "
+        f"rank (rank 0), one step profiled: {b['launches_per_step']} "
+        f"launches ({b['nccl_launches_per_step']} NCCL), device busy "
+        f"{b['busy_ms_per_step']:.1f} ms; m shard {b['m_shard_shape']}; "
+        f"{card}")
+    log(f"(b) one f32 'dp' step at depth {CHECK_DEPTH}, global B="
+        f"{MC_CHECK_BATCH} x T={MC_CHECK_SEQ}, against the one-process step"
+        f" on cuda:0: loss rel {bc['loss_rel']:.3g} (limit {MC_LOSS_REL}), "
+        f"grad norm rel {bc['grad_norm_rel']:.3g}, m leaves "
+        f"{bc['m_leaf_rel']:.3g} of their largest (limit "
+        f"{CARD_CPU_LEAF_REL}); params max abs {bc['param_max_abs']:.3g} "
+        f"(limit {2 * bc['lr']:.3g}), where |g| is clear "
+        f"{bc['param_max_abs_clear']:.3g} (limit {1e-3 * bc['lr']:.3g}); "
+        f"{card}")
+    log(f"(c) all_reduce_compressed over {semantics}: equal to the host "
+        f"emulation bit for bit {c['bit_equal_to_host']}, error buffers "
+        f"{c['error_bit_equal']}; max abs err to the exact mean "
+        f"{c['max_abs_err']:.4g} (limit 2 x scale = {2 * c['scale']:.4g});"
+        f" {card}")
+    log(f"(d) 'tp' on the {tuple(d['mesh'])} mesh: loss {d['loss_tp']:.6f} "
+        f"vs 'dp' {d['loss_dp']:.6f} (|diff| {d['tp_vs_dp']:.3g}, limit "
+        f"{MC_TP_DP}); first step {d['first_step_s']:.2f} s, second "
+        f"{d['second_step_ms']:.1f} ms; saved (gathered, rank 0 writes) in "
+        f"{d['save_s']:.2f} s, restored onto world 1 in {d['restore_s']:.2f}"
+        f" s; the next step's loss rel {d['resume_loss_rel']:.3g} (limit "
+        f"{MC_LOSS_REL}) to the step on the mesh, params max abs "
+        f"{d['param_max_abs']:.3g} (limit {2 * d['lr']:.3g}), where |g| is "
+        f"clear {d['param_max_abs_clear']:.3g} (limit "
+        f"{1e-3 * d['lr']:.3g}); ranks {ranks_s:.1f} s; {card}")
+    failed = []
+    if not all(math.isfinite(x) for x in b["losses"]):
+        failed.append(f"(b) non-finite losses {b['losses']}")
+    if not (bc["loss_rel"] <= MC_LOSS_REL
+            and bc["m_leaf_rel"] <= CARD_CPU_LEAF_REL
+            and bc["param_max_abs"] <= 2 * bc["lr"] + 1e-6
+            and bc["param_max_abs_clear"] <= 1e-3 * bc["lr"] + 1e-7):
+        failed.append(f"(b) dp vs one-process beyond the limits: {bc}")
+    if not (c["bit_equal_to_host"] and c["error_bit_equal"]
+            and c["max_abs_err"] < 2 * c["scale"]):
+        failed.append(f"(c) compressed all-reduce: {c}")
+    if not (d["tp_vs_dp"] <= MC_TP_DP and d["restored_step"] == 1
+            and d["resume_loss_rel"] <= MC_LOSS_REL
+            and d["param_max_abs"] <= 2 * d["lr"] + 1e-6
+            and d["param_max_abs_clear"] <= 1e-3 * d["lr"] + 1e-7):
+        failed.append(f"(d) tp / re-mesh beyond the limits: {d}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3293,7 +3713,8 @@ def main() -> int:
                      ("lm_decode", lambda: phase_lm_decode(device)),
                      ("lm_serve", lambda: phase_lm_serve(device)),
                      ("lm_families", lambda: phase_lm_families(device)),
-                     ("train", lambda: phase_train(device))):
+                     ("train", lambda: phase_train(device)),
+                     ("multicard", lambda: phase_multicard(device))):
         t0 = time.perf_counter()
         try:
             report[name] = fn()
@@ -3318,11 +3739,13 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/ata_probe_rank.cu",
         "replaces": "src/repro/kernels/ata_probe_rank.py:54",
         # the paper suite's, the zoo suite's, the sweep phase's, the
-        # telemetry phase's and the bench phase's runs, each counted from 0
+        # telemetry phase's, the bench phase's and the split sweep's runs,
+        # each counted from 0
         "launches": (report["suite"]["launches"] + report["zoo"]["launches"]
                      + report["sweep"]["launches"]
                      + report["telemetry"]["launches"]["ata_probe_rank"]
-                     + report["bench"]["launches"]["ata_probe_rank"]),
+                     + report["bench"]["launches"]["ata_probe_rank"]
+                     + report["multicard"]["a"]["launches"]),
         "max_abs_err": report["kernels"]["max_abs_err"],
         "ms": t["device_ms"] if t["device_ms"] is not None else t["call_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

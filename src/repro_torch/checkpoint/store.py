@@ -21,8 +21,16 @@ bit:
 A tree is nested dicts, lists and tuples whose leaves are tensors, numpy
 arrays or scalars, or :class:`torch.nn.Module`s, whose leaves are their
 named parameters (a train state's ``params``); a leaf's path joins its
-keys with ``/``. The reference's ``shardings=`` (restore onto another
-mesh) is ``device=`` here: one card.
+keys with ``/``.
+
+Over a mesh (one process per device), a checkpoint still holds full
+leaves in this layout, so it stays interchangeable with the reference's
+and with one-device runs: :meth:`CheckpointStore.save` gathers every
+DTensor leaf (a ZeRO-1 moment, a tensor-parallel parameter) whole, a
+collective that every rank joins, and only rank 0 keeps the host copy
+and writes it. :meth:`CheckpointStore.restore` loads full leaves and
+places them on any mesh and world size with ``placements=`` (the
+reference's ``shardings=``, its elastic re-mesh), or on one ``device``.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed
 from torch import nn
 
 #: dtypes numpy cannot hold, by the manifest's (numpy's) dtype name: the
@@ -68,6 +77,15 @@ def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+def _is_dtensor(t) -> bool:
+    return hasattr(t, "full_tensor")
+
+
+def _rank() -> int:
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
     """A copy of ``leaf`` in host memory (an exotic dtype as its unsigned
     view) and the manifest's name of its dtype."""
@@ -75,6 +93,8 @@ def _to_host(leaf) -> Tuple[np.ndarray, str]:
         arr = np.array(leaf)
         return arr, str(arr.dtype)
     t = leaf.detach()
+    if _is_dtensor(t):
+        t = t.full_tensor()
     name = str(t.dtype).removeprefix("torch.")
     if name in _EXOTIC:
         _, t_int, _, store = _EXOTIC[name]
@@ -89,6 +109,17 @@ def _from_host(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
+def _flatten_placements(tree, prefix: str = "") -> Dict[str, tuple]:
+    """{path: placements} of a tree of dicts whose leaves are placement
+    tuples (the paths :func:`_flatten` gives the matching state)."""
+    if not isinstance(tree, dict):
+        return {prefix[:-1]: tuple(tree)}
+    out = {}
+    for k, v in tree.items():
+        out.update(_flatten_placements(v, f"{prefix}{k}/"))
+    return out
+
+
 class CheckpointStore:
     def __init__(self, directory):
         self.dir = pathlib.Path(directory)
@@ -99,14 +130,27 @@ class CheckpointStore:
     def save(self, step: int, tree, *, wait: bool = False) -> None:
         """Snapshot ``tree`` to host memory now; write it to disk on a
         worker thread (joined by the next save, :meth:`wait` or
-        ``wait=True``)."""
-        host = {k: _to_host(v) for k, v in _flatten(tree).items()}
-        self.wait()
-        self._thread = threading.Thread(
-            target=self._write, args=(step, host), daemon=True)
-        self._thread.start()
+        ``wait=True``). A tree with DTensor leaves is gathered whole by
+        every rank (each must call this) and written by rank 0 alone;
+        with ``wait=True`` every rank returns once the checkpoint is on
+        disk."""
+        flat = _flatten(tree)
+        sharded = any(_is_dtensor(v) for v in flat.values())
+        writer = not sharded or _rank() == 0
+        host = {}
+        for k, v in flat.items():
+            arr = _to_host(v)             # every rank joins each gather
+            if writer:
+                host[k] = arr
+        if writer:
+            self.wait()
+            self._thread = threading.Thread(
+                target=self._write, args=(step, host), daemon=True)
+            self._thread.start()
         if wait:
             self.wait()
+            if sharded:
+                torch.distributed.barrier()
 
     def _write(self, step: int, host: Dict[str, Tuple[np.ndarray, str]]):
         final = self.dir / f"step_{step:08d}"
@@ -138,12 +182,23 @@ class CheckpointStore:
                 steps.append(int(d.name.split("_")[1]))
         return max(steps) if steps else None
 
-    def restore(self, like, step: Optional[int] = None, *, device=None):
+    def restore(self, like, step: Optional[int] = None, *, device=None,
+                mesh=None, placements=None):
         """Load into the structure of ``like`` -> (tree, step). Leaves are
         tensors on ``device`` (default: the device of ``like``'s leaf;
         the CPU for a non-tensor leaf), in the dtype the checkpoint
         holds; a module in ``like`` comes back as a copy holding the
-        loaded parameters (``like`` is left as it was)."""
+        loaded parameters (``like`` is left as it was).
+
+        With ``mesh`` and ``placements`` (a tree of dicts shaped as
+        ``like``, a module's entry {parameter name: placements}, as
+        ``repro_torch.train.step.state_placements`` gives them), a
+        leaf that has placements is loaded whole on this rank's
+        ``device`` and kept as a DTensor of its placements (each rank
+        its own chunk): any mesh and world size can load any
+        checkpoint."""
+        from repro_torch.sharding.rules import place
+        pl = _flatten_placements(placements) if placements else {}
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.dir}")
@@ -156,7 +211,10 @@ class CheckpointStore:
                 raise KeyError(f"checkpoint missing leaf {path}")
             dev = device if device is not None else (
                 leaf.device if torch.is_tensor(leaf) else "cpu")
-            return _from_host(np.load(d / meta["file"]), meta["dtype"], dev)
+            t = _from_host(np.load(d / meta["file"]), meta["dtype"], dev)
+            if path in pl:
+                t = place(t, mesh, pl[path])
+            return t
 
         def build(tree, prefix):
             if isinstance(tree, nn.Module):

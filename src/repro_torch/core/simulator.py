@@ -645,13 +645,15 @@ def _member_runs(members: Sequence, names: Sequence[str]) -> tuple:
     return tuple(runs)
 
 
-def _simulate_points(archs: Sequence[str], nocs: Sequence[str],
-                     traces: Sequence[Trace], geoms: Sequence[GpuGeometry],
-                     *, probe_backend: str, device,
-                     telemetry: Optional[TelemetryConfig] = None):
+class _PointPass:
     """One batched pass over P points of one kind and one geometry
     structure, each with its own architecture, NoC model, geometry
-    timing and trace; results in input order.
+    timing and trace, on one device, taken a round at a time:
+    :meth:`round` launches round ``i`` (no read back to the host),
+    :meth:`finish` reads the state back and returns the per-point
+    results. :func:`_simulate_points` runs every round and finishes; a
+    sweep split over devices interleaves several passes' rounds from one
+    host thread (``repro_torch.core.sweep``).
 
     The points are ordered so that each architecture's points, and
     within them each NoC model's, are contiguous. Every stage but the
@@ -661,76 +663,117 @@ def _simulate_points(archs: Sequence[str], nocs: Sequence[str],
     :func:`_transit`). A pass whose points share one architecture and
     one NoC model launches exactly what a plain batch does. Each point's
     result equals its own :func:`simulate` bit for bit.
+    """
+
+    def __init__(self, archs: Sequence[str], nocs: Sequence[str],
+                 traces: Sequence[Trace], geoms: Sequence[GpuGeometry], *,
+                 probe_backend: str, device,
+                 telemetry: Optional[TelemetryConfig] = None):
+        arch_rank = {a: i for i, a in enumerate(registered_archs())}
+        noc_rank = {n: i for i, n in enumerate(registered_nocs())}
+        order = sorted(range(len(traces)),
+                       key=lambda i: (arch_rank[archs[i]], noc_rank[nocs[i]]))
+        self.order = order
+        self.archs = archs = [archs[i] for i in order]
+        self.nocs = nocs = [nocs[i] for i in order]
+        self.traces = traces = [traces[i] for i in order]
+        T, C, m = traces[0].addr.shape
+        P = len(traces)
+        self.rounds = T
+        self.n_apps = n_apps = traces[0].n_apps
+        policies = [get_arch(a) for a in dict.fromkeys(archs)]
+        models = [get_noc(n) for n in dict.fromkeys(nocs)]
+        self.runs = _Runs(_member_runs(policies, archs),
+                          _member_runs(models, nocs))
+        self.g = g = DeviceGeometry([geoms[i] for i in order], device)
+        self.probe_backend = probe_backend
+        self.telemetry = telemetry
+
+        # round-major, so each round's (P, C, m) slice is contiguous
+        self.addr = torch.from_numpy(
+            np.stack([t.addr for t in traces], axis=1)).to(device)
+        self.is_write = torch.from_numpy(
+            np.stack([t.is_write for t in traces], axis=1)).to(device)
+        self.insn = torch.from_numpy(np.stack(
+            [np.asarray(t.insn_per_req, np.float32).reshape(-1)
+             for t in traces])).to(device)                     # (P, 1|C)
+        self.core_app_np = np.stack(
+            [t.core_app_ids for t in traces]).astype(np.int64)
+        self.core_app = torch.from_numpy(self.core_app_np).to(device)
+        self.ts = torch.arange(T, dtype=torch.int32, device=device)
+        self.routing = _routing(g, P, C, m, device)
+
+        hist_bins = (telemetry.sim_hist_bins
+                     if telemetry is not None and telemetry.histograms
+                     else None)
+        self.state = (_l1_state(g, policies, P, device),
+                      _l2_state(g, P, device),
+                      _noc_state(g, models, P, device),
+                      _init_stats(g, P, n_apps, device, hist_bins))
+        self.hist_edges = (log2_edges_tensor(hist_bins, device)
+                           if hist_bins is not None else None)
+        self.window = W = (telemetry.window_for(T) if telemetry is not None
+                           else 0)
+        self.snaps = None if telemetry is None else {
+            part: {k: torch.empty((T // W,) + v.shape, dtype=v.dtype,
+                                  device=device)
+                   for k, v in carried.items()}
+            for part, carried in (("stats", self.state[3]),
+                                  ("noc", self.state[2]))}
+        self.served_lat = torch.empty((T, P, C), dtype=torch.float32,
+                                      device=device)
+
+    def round(self, i: int) -> None:
+        """Launch round ``i`` (rounds run in order, 0 first)."""
+        self.state, self.served_lat[i] = _round(
+            self.runs, self.g, self.insn, self.core_app, self.state,
+            self.addr[i], self.is_write[i], self.ts[i], self.routing,
+            probe_backend=self.probe_backend, hist_edges=self.hist_edges)
+        W = self.window
+        if self.snaps is not None and (i + 1) % W == 0:
+            _snapshot(self.snaps, i // W, self.state)
+
+    def finish(self):
+        """The per-point results in input order (with ``telemetry``,
+        ``(results, timelines)``), read back to the host."""
+        state, order, traces = self.state, self.order, self.traces
+        n_apps, core_app_np = self.n_apps, self.core_app_np
+        stats = {k: v.cpu().numpy() for k, v in state[3].items()}
+        served_lat = self.served_lat.cpu().numpy()
+        stats["app_lat_sum"] = _fold_app_lat(served_lat, core_app_np, n_apps)
+        noc_state = {k: v.cpu().numpy() for k, v in state[2].items()}
+        out: List[Optional[SimResult]] = [None] * len(traces)
+        for b, (i, tr) in enumerate(zip(order, traces)):
+            out[i] = _summarize(
+                {**{k: v[b] for k, v in stats.items()},
+                 "noc": {k: v[b] for k, v in noc_state.items()}}, tr)
+        if self.telemetry is None:
+            return out
+        snaps = {part: {k: v.cpu().numpy() for k, v in bufs.items()}
+                 for part, bufs in self.snaps.items()}
+        snaps["stats"]["app_lat_sum"] = _fold_app_lat(
+            served_lat, core_app_np, n_apps, self.window)
+        return out, _timelines(snaps, order, self.archs, self.nocs, traces,
+                               self.g, self.telemetry)
+
+
+def _simulate_points(archs: Sequence[str], nocs: Sequence[str],
+                     traces: Sequence[Trace], geoms: Sequence[GpuGeometry],
+                     *, probe_backend: str, device,
+                     telemetry: Optional[TelemetryConfig] = None):
+    """One batched pass over P points (see :class:`_PointPass`); results
+    in input order.
 
     With ``telemetry`` it returns ``(results, timelines)``, one
     :class:`~repro_torch.obs.SimTimeline` per point in input order, each
     the one the point's own :func:`simulate` keeps (its link lanes cut
     to its own NoC model's).
     """
-    arch_rank = {a: i for i, a in enumerate(registered_archs())}
-    noc_rank = {n: i for i, n in enumerate(registered_nocs())}
-    order = sorted(range(len(traces)),
-                   key=lambda i: (arch_rank[archs[i]], noc_rank[nocs[i]]))
-    archs = [archs[i] for i in order]
-    nocs = [nocs[i] for i in order]
-    traces = [traces[i] for i in order]
-    T, C, m = traces[0].addr.shape
-    P = len(traces)
-    n_apps = traces[0].n_apps
-    policies = [get_arch(a) for a in dict.fromkeys(archs)]
-    models = [get_noc(n) for n in dict.fromkeys(nocs)]
-    runs = _Runs(_member_runs(policies, archs), _member_runs(models, nocs))
-    g = DeviceGeometry([geoms[i] for i in order], device)
-
-    # round-major, so each round's (P, C, m) slice is contiguous
-    addr = torch.from_numpy(np.stack([t.addr for t in traces], axis=1)
-                            ).to(device)
-    is_write = torch.from_numpy(np.stack([t.is_write for t in traces],
-                                         axis=1)).to(device)
-    insn = torch.from_numpy(np.stack(
-        [np.asarray(t.insn_per_req, np.float32).reshape(-1)
-         for t in traces])).to(device)                        # (P, 1|C)
-    core_app_np = np.stack([t.core_app_ids for t in traces]).astype(np.int64)
-    core_app = torch.from_numpy(core_app_np).to(device)
-    ts = torch.arange(T, dtype=torch.int32, device=device)
-    routing = _routing(g, P, C, m, device)
-
-    hist_bins = (telemetry.sim_hist_bins
-                 if telemetry is not None and telemetry.histograms else None)
-    state = (_l1_state(g, policies, P, device), _l2_state(g, P, device),
-             _noc_state(g, models, P, device),
-             _init_stats(g, P, n_apps, device, hist_bins))
-    hist_edges = (log2_edges_tensor(hist_bins, device)
-                  if hist_bins is not None else None)
-    W = telemetry.window_for(T) if telemetry is not None else 0
-    snaps = None if telemetry is None else {
-        part: {k: torch.empty((T // W,) + v.shape, dtype=v.dtype,
-                              device=device) for k, v in carried.items()}
-        for part, carried in (("stats", state[3]), ("noc", state[2]))}
-    served_lat = torch.empty((T, P, C), dtype=torch.float32, device=device)
-    for i in range(T):
-        state, served_lat[i] = _round(runs, g, insn, core_app, state,
-                                      addr[i], is_write[i], ts[i], routing,
-                                      probe_backend=probe_backend,
-                                      hist_edges=hist_edges)
-        if snaps is not None and (i + 1) % W == 0:
-            _snapshot(snaps, i // W, state)
-    stats = {k: v.cpu().numpy() for k, v in state[3].items()}
-    served_lat = served_lat.cpu().numpy()
-    stats["app_lat_sum"] = _fold_app_lat(served_lat, core_app_np, n_apps)
-    noc_state = {k: v.cpu().numpy() for k, v in state[2].items()}
-    out: List[Optional[SimResult]] = [None] * P
-    for b, (i, tr) in enumerate(zip(order, traces)):
-        out[i] = _summarize({**{k: v[b] for k, v in stats.items()},
-                             "noc": {k: v[b] for k, v in noc_state.items()}},
-                            tr)
-    if telemetry is None:
-        return out
-    snaps = {part: {k: v.cpu().numpy() for k, v in bufs.items()}
-             for part, bufs in snaps.items()}
-    snaps["stats"]["app_lat_sum"] = _fold_app_lat(served_lat, core_app_np,
-                                                  n_apps, W)
-    return out, _timelines(snaps, order, archs, nocs, traces, g, telemetry)
+    p = _PointPass(archs, nocs, traces, geoms, probe_backend=probe_backend,
+                   device=device, telemetry=telemetry)
+    for i in range(p.rounds):
+        p.round(i)
+    return p.finish()
 
 
 def _timelines(snaps, order, archs, nocs, traces, geom, telemetry):

@@ -42,9 +42,18 @@ baselines gate them. Results are bit-identical to per-point
 :class:`~repro_torch.obs.SimTimeline` per point, each equal to the one
 the point's own ``simulate(telemetry=...)`` keeps.
 
-Every bucket runs on the one device given to :meth:`SweepGrid.run`;
-``n_devices`` is accepted for the reference's signature and the report
-says 1.
+**Device split** (the reference shards each bucket's point axis over
+the host's devices with ``shard_map``): :meth:`SweepGrid.run` splits
+each bucket's points into D contiguous slices, one pass per device,
+launches the passes' rounds in turn from the one host thread, and
+gathers the per-point results in the points' order; the report says D.
+The passes are host-bound, so a split adds launches and overlaps little:
+the run splits only when asked (``n_devices`` or ``devices``). A point's
+result does not depend on the slice it lands in (C5's batch-independent
+NoC totals, C1's host fold), so a split run is bit-equal to a
+one-device run. ``devices=`` lists the devices to split over and may
+name one device more than once (the counterpart of the reference's
+forced host-device count; on the CPU the only way to split).
 """
 from __future__ import annotations
 
@@ -53,6 +62,7 @@ import time
 from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.arch import get_arch, registered_archs
 from repro_torch.core.geometry import (GpuGeometry, PAPER_GEOMETRY,
@@ -60,8 +70,9 @@ from repro_torch.core.geometry import (GpuGeometry, PAPER_GEOMETRY,
 from repro_torch.core.noc import get_noc, registered_nocs
 from repro_torch.core.probe import PROBE_BACKENDS, resolve_probe_backend
 from repro_torch.core.telemetry import TelemetryConfig
+from repro_torch.sharding.compat import make_mesh_1d
 from repro_torch.core.simulator import (SimResult, Trace, _check_arch,
-                                        _check_noc, _simulate_points,
+                                        _check_noc, _PointPass,
                                         resolve_device, round_signature,
                                         trace_kind)
 
@@ -154,6 +165,22 @@ def _signature(*key) -> tuple:
     if key not in _SIG_MEMO:
         _SIG_MEMO[key] = round_signature(*key)
     return _SIG_MEMO[key]
+
+
+def split_devices(n_devices: Optional[int] = None, device=None,
+                  devices: Optional[Sequence] = None) -> List[torch.device]:
+    """The D devices :meth:`SweepGrid.run` splits over (see there)."""
+    if devices is not None:
+        pool = [resolve_device(d) for d in devices]
+    else:
+        device = resolve_device(device)
+        pool = (make_mesh_1d(torch.cuda.device_count())
+                if n_devices is not None and device.type == "cuda"
+                and device.index is None else [device])
+    if not pool or len({d.type for d in pool}) != 1:
+        raise ValueError(f"devices must be one or more devices of one "
+                         f"type, got {pool}")
+    return pool[:max(1, min(n_devices or len(pool), len(pool)))]
 
 
 class SweepGrid:
@@ -270,55 +297,78 @@ class SweepGrid:
 
     def run(self, n_devices: Optional[int] = None, *,
             telemetry: Optional[TelemetryConfig] = None,
-            device=None) -> SweepRun:
-        """Sweep every grid point, one batched pass per bucket, on
-        ``device`` (default ``"cuda"``). ``n_devices`` is accepted for
-        the reference's signature; every pass runs on the one device.
+            device=None, devices: Optional[Sequence] = None) -> SweepRun:
+        """Sweep every grid point, one batched pass per bucket and device.
+
+        The devices are ``devices`` when given, else every card when
+        ``n_devices`` is given and ``device`` is ``"cuda"`` (the default),
+        else ``device`` alone; the run splits over the first D = max(1,
+        min(n_devices or all, all)) of them (the reference's rule) and
+        reports D as ``n_devices``. Unlike the reference, a call that
+        names neither runs on one device: one host thread issues every
+        device's passes round by round, and the sweep is host-bound, so a
+        split multiplies the launches without overlapping them (PERF.md
+        §6). Each bucket's points are cut into D contiguous slices of
+        ceil(B / D) points (the reference's padded layout without the
+        padding), each run on its device; results are gathered in the
+        points' order, bit-equal to a one-device run.
 
         ``telemetry`` threads windowed observability through every
         pass: the returned :class:`SweepRun` gains ``timelines``, one
         ``repro_torch.obs.SimTimeline`` per point (aligned with
         :attr:`points`), and the results stay bit-equal to a run
         without it."""
-        del n_devices
         t0 = time.perf_counter()
         if telemetry is not None:
             for p in self.points:
                 telemetry.window_for(p.trace.addr.shape[0])
-        device = resolve_device(device)
+        pool = split_devices(n_devices, device, devices)
+        D = len(pool)
+        dev_type = pool[0].type
         group_of = self._arch_group_of()
         noc_group_of = self._noc_group_of()
         buckets: Dict[tuple, List[int]] = {}
         for i, p in enumerate(self.points):
             key = (group_of[p.arch], noc_group_of[p.noc],
                    geom_structure(p.geom), trace_kind(p.trace),
-                   resolve_probe_backend(p.probe_backend, device))
+                   resolve_probe_backend(p.probe_backend, pool[0]))
             buckets.setdefault(key, []).append(i)
 
         results: List[Optional[SimResult]] = [None] * len(self.points)
         timelines = None if telemetry is None else [None] * len(self.points)
         used, new_compiles = set(), 0
         for key, idxs in buckets.items():
-            exec_key = key + (device.type,)
+            exec_key = key + (dev_type,)
             used.add(exec_key)
             if exec_key not in _COMPILED_KEYS:
                 _COMPILED_KEYS.add(exec_key)
                 new_compiles += 1
-            pts = [self.points[i] for i in idxs]
-            out = _simulate_points(
-                [p.arch for p in pts], [p.noc for p in pts],
-                [p.trace for p in pts], [p.geom for p in pts],
-                probe_backend=key[4], device=device, telemetry=telemetry)
-            if telemetry is not None:
-                out, tls = out
-                for i, tl in zip(idxs, tls):
-                    tl.meta["probe_backend"] = self.points[i].probe_backend
-                    timelines[i] = tl
-            for i, r in zip(idxs, out):
-                results[i] = r
+            per = -(-len(idxs) // D)
+            slices = [(idxs[j * per:(j + 1) * per], dev)
+                      for j, dev in enumerate(pool) if idxs[j * per:]]
+            passes = []
+            for part, dev in slices:
+                pts = [self.points[i] for i in part]
+                passes.append(_PointPass(
+                    [p.arch for p in pts], [p.noc for p in pts],
+                    [p.trace for p in pts], [p.geom for p in pts],
+                    probe_backend=key[4], device=dev, telemetry=telemetry))
+            for r in range(passes[0].rounds):
+                for ps in passes:
+                    ps.round(r)
+            for (part, _), ps in zip(slices, passes):
+                out = ps.finish()
+                if telemetry is not None:
+                    out, tls = out
+                    for i, tl in zip(part, tls):
+                        tl.meta["probe_backend"] = \
+                            self.points[i].probe_backend
+                        timelines[i] = tl
+                for i, r in zip(part, out):
+                    results[i] = r
         report = SweepReport(n_points=len(self.points),
                              n_executables=len(used),
-                             n_compiles=new_compiles, n_devices=1,
+                             n_compiles=new_compiles, n_devices=D,
                              wall_s=time.perf_counter() - t0)
         return SweepRun(results=results, report=report,  # type: ignore
                         timelines=timelines)

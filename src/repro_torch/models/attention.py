@@ -16,7 +16,8 @@ caller holds never changes under it. Cross-attention (the
 encoder-decoder's) is :func:`attention_forward` with ``kv_x`` (the
 encoder's output), ``causal=False`` and ``rope_on=False``, on parameters
 made with ``cross=True`` (no qk-norm). The reference's sharding
-annotations are not ported.
+annotations (:func:`repro_torch.sharding.annotate`) sit where the
+reference's do; outside a rules context they return their input.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.rules import annotate
 
 NEG_INF = -1e30
 
@@ -75,6 +77,9 @@ def _project_qkv(p: Attention, cfg: ModelConfig, x, kv_x=None, *,
     if kv_repeat > 1:
         k = k.repeat_interleave(kv_repeat, dim=2)
         v = v.repeat_interleave(kv_repeat, dim=2)
+    q = annotate(q, "batch", "seq", "heads", "head_dim")
+    k = annotate(k, "batch", "seq", "kv_heads_act", "head_dim")
+    v = annotate(v, "batch", "seq", "kv_heads_act", "head_dim")
     return q, k, v
 
 
@@ -143,6 +148,32 @@ def blocked_attention(q, k, v, *, causal: bool, window: Optional[int],
     return torch.cat(outs, dim=2)
 
 
+def _per_shard(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)`` on (B, H, T, D) tensors. Under tensor
+    parallelism (DTensors) it runs on each rank's shards and rewraps the
+    result: attention is independent per (batch, head), and the rules
+    shard q, k and v over those two axes only, alike (the query heads'
+    blocks use the matching blocks of KV heads), so the shards are
+    exact. DTensor's own rule for the score einsum's flatten of a
+    head-sharded (B, H) fails in torch 2.11."""
+    if not hasattr(q, "to_local"):
+        return fn(q, k, v, **kw)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    pl = tuple(q.placements)
+    if (tuple(k.placements) != pl or tuple(v.placements) != pl
+            or any(p != Replicate()
+                   and not (isinstance(p, Shard) and p.dim in (0, 1))
+                   for p in pl)):
+        raise ValueError(f"attention over q {pl}, k {k.placements}, v "
+                         f"{v.placements}: only batch and heads may be "
+                         "sharded, alike in all three")
+    o = fn(q.to_local(), k.to_local(), v.to_local(), **kw)
+    shape = tuple(q.shape[:3]) + tuple(v.shape[3:])
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(o, q.device_mesh, pl, run_check=False,
+                              shape=shape, stride=stride)
+
+
 def attention_forward(p: Attention, cfg: ModelConfig, x, *, positions,
                       kv_x=None, causal=True, window=None, rope_on=True,
                       kv_repeat: int = 1):
@@ -152,12 +183,13 @@ def attention_forward(p: Attention, cfg: ModelConfig, x, *, positions,
                            rope_on=rope_on, kv_repeat=kv_repeat)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))     # (B,H,T,hd)
     if cfg.attention_impl == "blocked":
-        o = blocked_attention(qt, kt, vt, causal=causal, window=window,
-                              chunk=cfg.attn_chunk)
+        o = _per_shard(blocked_attention, qt, kt, vt, causal=causal,
+                       window=window, chunk=cfg.attn_chunk)
     else:
-        o = ops.attention(qt, kt, vt, causal=causal, window=window,
-                          impl=cfg.attention_impl)
-    return _out_proj(p, o.transpose(1, 2))
+        o = _per_shard(ops.attention, qt, kt, vt, causal=causal,
+                       window=window, impl=cfg.attention_impl)
+    o = annotate(o.transpose(1, 2), "batch", "seq", "heads", "head_dim")
+    return _out_proj(p, o)
 
 
 # ---------------------------------------------------------------------------

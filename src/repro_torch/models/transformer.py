@@ -47,6 +47,7 @@ from repro_torch.core.simulator import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, recurrent
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.rules import annotate
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -196,7 +197,7 @@ def _device_of(params: Transformer) -> torch.device:
 # blocks
 # ---------------------------------------------------------------------------
 def _mlp_forward(p: MLP, cfg: ModelConfig, x):
-    h = layers.dense(p.wi, x)
+    h = annotate(layers.dense(p.wi, x), "batch", "seq", "mlp")
     if p.wg is not None:
         h = layers.activation(cfg.activation, h, layers.dense(p.wg, x))
     else:
@@ -208,6 +209,10 @@ def _block_forward(p: Block, cfg: ModelConfig, x, *, positions,
                    causal=True, enc_out=None, kv_repeat=1):
     """Returns (x, aux): the block's output and its MoE aux loss."""
     h = layers.rmsnorm(p.norm1, x, cfg.norm_eps)
+    # Megatron-SP transition: the boundary residual is sequence-sharded;
+    # gather the sequence here (one all-gather) so head/expert sharding
+    # inside the block never straddles a sequence-sharded tensor
+    h = annotate(h, "batch", "seq", "embed")
     if p.kind == "rwkv6":
         a, _ = recurrent.rwkv6_forward(p.rwkv, cfg, h)
     elif p.kind == "rglru":
@@ -217,18 +222,23 @@ def _block_forward(p: Block, cfg: ModelConfig, x, *, positions,
         a = attn.attention_forward(p.attn, cfg, h, positions=positions,
                                    causal=causal, window=window,
                                    kv_repeat=kv_repeat)
+    # the block's output sequence-sharded before the residual add: the
+    # tensor-parallel partial sum becomes a reduce-scatter
+    a = annotate(a, "batch", "seq_boundary", "embed")
     x = x + a
     if p.xattn is not None:
         hx = layers.rmsnorm(p.norm_x, x, cfg.norm_eps)
         x = x + attn.attention_forward(p.xattn, cfg, hx, positions=None,
                                        kv_x=enc_out, causal=False,
                                        rope_on=False)
-    h2 = layers.rmsnorm(p.norm2, x, cfg.norm_eps)
+    h2 = annotate(layers.rmsnorm(p.norm2, x, cfg.norm_eps),
+                  "batch", "seq", "embed")
     if cfg.is_moe:
         m, aux = moe.moe_forward(p.moe, cfg, h2)
     else:
         m, aux = _mlp_forward(p.mlp, cfg, h2), None
-    return x + m, aux
+    m = annotate(m, "batch", "seq_boundary", "embed")
+    return annotate(x + m, "batch", "seq_boundary", "embed"), aux
 
 
 def _run_blocks(blocks, cfg: ModelConfig, x, **kw):
@@ -264,7 +274,13 @@ def _run_stack(blocks, cfg: ModelConfig, x, *, period: int, n_stacked: int,
 # ---------------------------------------------------------------------------
 def embed_tokens(params: Transformer, cfg: ModelConfig, tokens):
     tokens = torch.as_tensor(tokens, device=_device_of(params)).long()
-    return params.embed.table[tokens].to(layers.dtype_of(cfg.dtype))
+    # under tensor parallelism the gather runs on a whole table and whole
+    # token ids: its backward (an index_put into the vocab-sharded
+    # table's gradient, from batch-sharded ids) has no working rule in
+    # torch 2.11 (no-ops outside a rules context)
+    table = annotate(params.embed.table, None, None)
+    x = table[annotate(tokens, None, None)].to(layers.dtype_of(cfg.dtype))
+    return annotate(x, "batch", "seq_boundary", "embed")
 
 
 def lm_logits(params: Transformer, cfg: ModelConfig, x):
@@ -273,7 +289,7 @@ def lm_logits(params: Transformer, cfg: ModelConfig, x):
         logits = x @ params.embed.table.to(x.dtype).T
     else:
         logits = layers.dense(params.lm_head, x)
-    return logits.float()
+    return annotate(logits, "batch", "seq", "vocab").float()
 
 
 def encode(params: Transformer, cfg: ModelConfig, enc_frames):

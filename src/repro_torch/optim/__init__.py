@@ -1,8 +1,11 @@
-"""Optimizer: AdamW (``adamw``) and int8 error-feedback gradient
-compression (``compression``)."""
+"""Optimizer: AdamW with ZeRO-1 (``adamw``) and int8 error-feedback
+gradient compression (``compression``)."""
 from repro_torch.optim import compression
-from repro_torch.optim.adamw import (AdamWConfig, apply_updates, global_norm,
-                                     init_opt_state, schedule)
+from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
+                                     apply_updates_sharded, global_norm,
+                                     init_opt_state, schedule,
+                                     zero1_placements)
 
-__all__ = ["AdamWConfig", "apply_updates", "compression", "global_norm",
-           "init_opt_state", "schedule"]
+__all__ = ["AdamWConfig", "apply_updates", "apply_updates_sharded",
+           "compression", "global_norm", "init_opt_state", "schedule",
+           "zero1_placements"]
