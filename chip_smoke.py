@@ -51,10 +51,11 @@ script then exits non-zero with no result line):
    rounds; solo, mix and NoC sections, the mix section from one
    ``mix_grid_run``) gated by ``compare_reports`` against
    ``benchmarks/baselines/sensitivity_rounds96.json``, with its 45 solo
-   cells also within rel 1e-6 of the baseline; every point of the
-   report's solo and NoC passes, and the composed points of two of its
-   mixes under ``ata`` and ``victim``, bit-equal to per-point
-   ``simulate()`` (phase 5's simulations reused); the NoC section's
+   cells also within rel 1e-6 of the baseline; the points of the
+   report's solo and NoC passes that phase 5 simulated, every point of
+   those passes run again at ``SWEEP_ORACLE_ROUNDS`` rounds, and the
+   composed points of two of its mixes under ``ata`` and ``victim``,
+   bit-equal to per-point ``simulate()``; the NoC section's
    ``ata``/``victim`` x ``crossbar``/``ring`` points against the
    reference fixture ``reference_noc_HS3D.json``; ``cfd+HS3D`` at 1536
    rounds under ``private`` and ``ata`` (``run_mixes``) against the
@@ -134,7 +135,11 @@ script then exits non-zero with no result line):
     pipeline with a 3-step warmup: losses and grad norms finite, the mean
     of the last 4 losses below the first 4, the four kernels' counts read
     from 0 (training launches none), ms per step, tokens/s, peak memory
-    and one profiled step's launches and busy share; (b) depth 2, f32:
+    and one profiled step's launches and busy share; the same cell
+    through the dry run on one device (``meta``, no mesh): the state's
+    bytes equal to the real state's, dot FLOPs equal to
+    ``FlopCounterMode``'s around one real step, the peak estimate beside
+    ``torch.cuda.max_memory_allocated``; (b) depth 2, f32:
     one step on the card against one on the host's CPU from one state,
     TF32 off (loss, grad norm, every leaf of m (the clipped gradient,
     scaled) and v, every updated parameter, to stated limits); (c) depth 2: ``train()`` stopped at step 3, resumed
@@ -145,7 +150,7 @@ script then exits non-zero with no result line):
     its Fig. 8 / Fig. 10 gains, and ``launch/bench_trend`` over the
     committed baselines and phase 9's reports, one series per backend;
 16. multi-card (``phase_multicard``; n = ``torch.cuda.device_count()``):
-    (a) phase 6's solo grid split over cuda:0..n-1 (over [cuda:0] x 4 on
+    (a) phase 6's solo grid split over cuda:0..n-1 (over [cuda:0] x 2 on
     one card: the same split-and-join code) by ``SweepGrid.run(devices=)``,
     every point bit-equal to the one-device run, ``n_devices`` = D,
     ``ata_probe_rank`` launched exactly as the slices owe (counted from
@@ -160,11 +165,23 @@ script then exits non-zero with no result line):
     and within 2 x scale of the exact mean; (d) one "tp" step on (2, n/2)
     for n >= 4, else (1, n), within 1e-3 of (b)'s "dp" loss, saved,
     restored onto world 1, one more step against the step taken on the
-    mesh without the round-trip;
-17. the per-phase times, the card line again, a ``kernels`` JSON line,
+    mesh without the round-trip; (e) granite-moe-1b-a400m, rwkv6-3b,
+    recurrentgemma-9b and whisper-tiny at full width (depth 2; the
+    hybrid 3), f32: a "tp" step within 1e-3 of a "dp" step, and MoE's
+    "dp" step against the one-process step (loss rel 1e-6);
+17. the dry run (``phase_dryrun``): started before phase 1 as a process
+    of its own with no card and joined here (killed and failed past 900
+    s): ``launch/dryrun.py``'s ``build_cell`` on the 16 x 16 fake mesh
+    for qwen3-0.6b train_4k, granite-moe-1b-a400m decode_32k and
+    rwkv6-3b long_500k at full size, each ``ok``;
+18. the per-phase times, the card line again, a ``kernels`` JSON line,
     and as the last line ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke_report.json``.
+
+``python3 chip_smoke.py multicard`` runs phase 16 alone on the host's
+cards (n NCCL ranks on an n-card host), after the kernels' build and
+phase 6's solo section, and writes ``chiprun_out/multicard_report.json``.
 """
 from __future__ import annotations
 
@@ -172,6 +189,7 @@ import concurrent.futures
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -898,9 +916,9 @@ SENSITIVITY = ROOT / "benchmarks" / "baselines" / "sensitivity_rounds96.json"
 SENSITIVITY_METRICS = ("ipc", "l1_hit_rate", "remote_hit_rate", "noc_flits",
                        "l1_latency")
 #: cut rounds of the probe-backend comparisons (phases 4 and 5), cut
-#: from 256 to make room for the training phase and to 64 for the
-#: multicard phase (PERF.md section 7)
-ZOO_BACKEND_ROUNDS = 64
+#: from 256 to make room for the training phase, to 64 for the
+#: multicard phase and to 32 for the dry run's checks (PERF.md section 7)
+ZOO_BACKEND_ROUNDS = 32
 #: phase 5's per-point simulate() of the sensitivity baseline's zoo
 #: points, {(arch, geometry, noc): SimResult}, reused by phase 6
 _ZOO_MEMO = {}
@@ -1029,6 +1047,12 @@ SOLO_EXECUTABLES = 9         # the baseline's solo passes: 3 families x 3
 CHECKED_MIXES = (("cfd", "HS3D"), ("cfd", "b+tree", "HS3D"))
 #: the sensitivity report of phase 6, for the telemetry phase
 _SWEEP_REPORT = {}
+#: rounds of the per-point oracle's second pass: the solo and NoC
+#: sections' grids run again on HS3D kernel 0 cut to this many rounds (the
+#: same buckets and lanes), and every point of it is held against its own
+#: simulate() (cut from the report's 96 rounds, where the points phase
+#: zoo simulated are still held)
+SWEEP_ORACLE_ROUNDS = 16
 #: the report's solo section (points, results), for the multicard phase
 _SWEEP_SOLO = []
 
@@ -1039,6 +1063,30 @@ def same_results(got, want, where: str) -> None:
     if json.dumps(g, sort_keys=True) != json.dumps(w, sort_keys=True):
         diff = sorted(k for k in w if g[k] != w[k])
         raise AssertionError(f"{where}: stacked != per-point in {diff}")
+
+
+def point_name(p) -> str:
+    return (f"{p.arch}/{p.noc} l1_ways={p.geom.l1_ways} "
+            f"noc_bw={p.geom.noc_bw} hide={p.geom.hide}")
+
+
+def cut_depth_oracle(points, trace, n_executables: int, device,
+                     where: str) -> int:
+    """``points`` with their trace replaced by ``trace``, run as one grid
+    (the same ``n_executables`` passes, so the same buckets and lanes),
+    each point's SimResult bit-equal to its own simulate(); returns the
+    points held."""
+    from repro_torch.core import SweepGrid, simulate
+    cut = [p._replace(trace=trace) for p in points]
+    run = SweepGrid.from_points(cut).run(device=device)
+    if run.report.n_executables != n_executables:
+        raise AssertionError(f"{where}: {run.report.n_executables} passes "
+                             f"at cut rounds, {n_executables} in the report")
+    for p, r in zip(cut, run.results):
+        same_results(r, simulate(p.arch, trace, p.geom, noc=p.noc,
+                                 device=device),
+                     f"{where} {point_name(p)} at cut rounds")
+    return len(cut)
 
 
 def phase_sweep(device) -> dict:
@@ -1103,27 +1151,29 @@ def phase_sweep(device) -> dict:
     log_rows("mix fairness at 96 rounds", fairness)
 
     # 2. the report's own passes against per-point simulate(), whole
-    # SimResults bit for bit: every point of the solo and NoC sections
-    # (phase 5's simulations reused) and the composed points of two
-    # mixes under ata and victim
+    # SimResults bit for bit: the points of the solo and NoC sections
+    # that phase zoo simulated, at the report's rounds; every point of
+    # those sections' grids run again at SWEEP_ORACLE_ROUNDS; and the
+    # composed points of two mixes under ata and victim
     t0 = time.perf_counter()
     trace = make_trace(dataclasses.replace(APPS[cfg["app"]],
                                            rounds=cfg["rounds"]), kernel=0)
-    memo, n_new, n_checked = _ZOO_MEMO, 0, 0
+    short = make_trace(dataclasses.replace(APPS[cfg["app"]],
+                                           rounds=SWEEP_ORACLE_ROUNDS),
+                       kernel=0)
+    n_memo = n_cut = 0
     for name in ("solo", "noc"):
         points, results, _ = section_runs[name]
         for p, r in zip(points, results):
             if not np.array_equal(p.trace.addr, trace.addr):
                 raise AssertionError(f"{name}: a point off HS3D kernel 0")
             key = (p.arch, p.geom, p.noc)
-            if key not in memo:
-                memo[key] = simulate(p.arch, trace, p.geom, noc=p.noc,
-                                     device=device)
-                n_new += 1
-            same_results(r, memo[key], f"{name} {p.arch}/{p.noc} "
-                         f"l1_ways={p.geom.l1_ways} noc_bw={p.geom.noc_bw} "
-                         f"hide={p.geom.hide}")
-            n_checked += 1
+            if key in _ZOO_MEMO:
+                same_results(r, _ZOO_MEMO[key], f"{name} {point_name(p)}")
+                n_memo += 1
+        n_cut += cut_depth_oracle(points, short,
+                                  sections[name]["n_executables"], device,
+                                  name)
     composed = {apps: WorkloadMix(apps=apps, rounds=cfg["rounds"]).compose(
         trace.n_cores) for apps in CHECKED_MIXES}
     checked = {(a, apps) for a in ("ata", "victim") for apps in composed}
@@ -1140,9 +1190,11 @@ def phase_sweep(device) -> dict:
         raise AssertionError(f"mix points not found: {sorted(checked)}")
     stacked_s = time.perf_counter() - t0
     log(f"the report's passes == per-point simulate() on the card, whole "
-        f"SimResults bit for bit: {n_checked} solo and NoC points "
-        f"({n_new} simulated here, the rest from phase zoo) and "
-        f"{2 * len(CHECKED_MIXES)} composed mix points ({stacked_s:.2f} s)")
+        f"SimResults bit for bit: {n_memo} solo and NoC points at "
+        f"{cfg['rounds']} rounds (phase zoo's), all {n_cut} of them at "
+        f"{SWEEP_ORACLE_ROUNDS} rounds (the sections' grids again, each "
+        f"point simulated here) and {2 * len(CHECKED_MIXES)} composed mix "
+        f"points ({stacked_s:.2f} s)")
 
     # 3. the NoC section's crossbar and ring points of ata and victim
     # against the reference's per-point simulate()
@@ -1212,7 +1264,8 @@ def phase_sweep(device) -> dict:
             "section_launches": due, "pair_launches": pair_launches,
             "report_s": report_s, "sections": sections,
             "report_max_rel_err": worst, "stacked_s": stacked_s,
-            "per_point_checked": n_checked, "per_point_simulated": n_new,
+            "per_point_report_rounds": n_memo,
+            "per_point_cut_rounds": n_cut,
             "noc_fixture_max_rel_err": noc_worst,
             "pair": {"mix": mid, "s": pair_s, "max_rel_err": pair_worst,
                      "weighted_speedup": ws, "unfairness": unfair,
@@ -2941,6 +2994,9 @@ TRAIN_ARCH = "qwen3-0.6b"
 #: cut from 12 to make room for the multicard phase (PERF.md section 7)
 TRAIN_STEPS = 8
 TRAIN_BATCH, TRAIN_SEQ = 4, 512
+#: (a) the dry run's peak estimate over torch.cuda.max_memory_allocated
+#: (the allocator adds its 512-byte rounding and cuBLAS's workspace)
+TRAIN_PEAK_BAND = (0.9, 1.1)
 #: a warmup short enough that a dozen steps train (the default's 100
 #: steps would keep the learning rate near 0)
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=3, total_steps=TRAIN_STEPS)
@@ -2989,6 +3045,49 @@ def leaf_rel(got, want) -> float:
     want = want.float()
     return float((got.float() - want).abs().max()
                  / want.abs().max().clamp_min(1e-30))
+
+
+def train_dry_run(cfg, state, step_fn, batch, peak_gb: float) -> dict:
+    """Phase train (a)'s cell through the dry run, on one device with no
+    mesh (``meta`` tensors on the host): its argument bytes of the state
+    must equal the real state's exactly, its dot FLOPs
+    ``FlopCounterMode``'s around one real step on the card (taken here,
+    on ``batch``), and its peak estimate (the arguments plus the live
+    temporaries the step creates) within TRAIN_PEAK_BAND of the
+    allocator's peak over (a)'s steps."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch.dryrun import analyze_train_step, leaves
+    from repro_torch.launch.step_analysis import storage_bytes
+    t0 = time.perf_counter()
+    dry = analyze_train_step(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    dry_s = time.perf_counter() - t0
+    real_bytes = storage_bytes(leaves(state))
+    with FlopCounterMode(display=False) as fc:
+        step_fn(state, batch)
+    torch.cuda.synchronize()
+    flops = fc.get_total_flops()
+    est_gb = (dry["argument_bytes"] + dry["temp_bytes"]) / 1e9
+    out = {"trace_s": dry_s, "state_bytes": dry["state_bytes"],
+           "real_state_bytes": real_bytes,
+           "dot_flops": dry["ops"]["dot_flops"], "flop_counter": flops,
+           "argument_bytes": dry["argument_bytes"],
+           "temp_bytes": dry["temp_bytes"], "peak_estimate_gb": est_gb,
+           "max_memory_allocated_gb": peak_gb,
+           "estimate_over_allocated": est_gb / peak_gb}
+    log(f"(a) the dry run of this cell on one device (meta, {dry_s:.1f} s "
+        f"on the host): state {dry['state_bytes']} bytes (the real state "
+        f"{real_bytes}), dot FLOPs {dry['ops']['dot_flops']} "
+        f"(FlopCounterMode around one real step: {flops}); peak estimate "
+        f"{est_gb:.2f} GB (arguments {dry['argument_bytes'] / 1e9:.2f} + "
+        f"live temporaries {dry['temp_bytes'] / 1e9:.2f}) beside "
+        f"torch.cuda.max_memory_allocated {peak_gb:.2f} GB: ratio "
+        f"{out['estimate_over_allocated']:.3f}")
+    lo, hi = TRAIN_PEAK_BAND
+    if (dry["state_bytes"] != real_bytes or dry["ops"]["dot_flops"] != flops
+            or not lo <= out["estimate_over_allocated"] <= hi):
+        raise AssertionError(f"(a) dry run against the real step: {out}")
+    return out
 
 
 def phase_train(device) -> dict:
@@ -3056,6 +3155,7 @@ def phase_train(device) -> dict:
     if not last < first:
         raise AssertionError(f"(a) the loss did not fall: {losses}")
     batch = launch_train.batch_on(dcfg, TRAIN_STEPS, device)
+    dry = train_dry_run(cfg, state, step_fn, batch, peak_gb)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3079,7 +3179,7 @@ def phase_train(device) -> dict:
         "launches_per_step": sum(c for _, c, _ in per_kernel),
         "busy_ms_per_step": busy_ms, "busy_share": busy_ms / 1e3 / med,
         "profiled_step_ms": prof_wall * 1e3, "peak_gb": peak_gb,
-        "kernel_launches": counts,
+        "kernel_launches": counts, "dry_run": dry,
         "top_kernels_ms": [(k[:90], d / 1e3, c) for d, c, k
                            in sorted(per_kernel, reverse=True)[:8]]}
     a = out["a"]
@@ -3304,10 +3404,31 @@ MC_LOSS_REL = 1e-6
 #: bar, tests/test_sharding.py)
 MC_TP_DP = 1e-3
 MC_TIMEOUT_S = 420
+#: (a) on a one-card host the split sweep runs over [cuda:0] x this many
+#: (the same split-and-join code; cut from 4 to make room for phase
+#: multicard (e))
+MC_SPLIT_ONE_CARD = 2
+#: (e) the other families at full width, f32, global B=4 x T=128
+#: (whisper-tiny 64 tokens over 64 frames): depth 2 (recurrentgemma-9b
+#: 3, its pattern's period, local attention included)
+MC_FAMILIES = {"granite-moe-1b-a400m": 2, "rwkv6-3b": 2,
+               "recurrentgemma-9b": 3, "whisper-tiny": 2}
 
 
 def mc_config(depth=None, **over):
     return train_config(depth, **over)
+
+
+def family_train_config(arch, depth):
+    """``arch`` at full width cut to ``depth`` layers (an encoder-decoder's
+    encoder too), f32, the blocked route, remat per layer."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(
+        cfg, attention_impl="blocked", remat="layer", dtype="float32",
+        n_layers=depth,
+        **({"encoder_layers": depth} if cfg.is_enc_dec else {}))
 
 
 def mc_params_close(got: dict, want: dict, m_want: dict, lr: float):
@@ -3328,6 +3449,55 @@ def mc_params_close(got: dict, want: dict, m_want: dict, lr: float):
 
 def _full(t):
     return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach()
+
+
+def mc_families(mesh, tmesh, opt, device, rank: int) -> dict:
+    """Phase multicard (e) on this rank: for each of MC_FAMILIES, one
+    "dp" step on ``mesh`` and one "tp" step on ``tmesh`` from one seed
+    (loss, grad norm, seconds), and for MoE, on rank 0, the one-process
+    step."""
+    import torch
+    from repro_torch.data import DataConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.sharding.rules import make_rules
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.step import local_batch
+    out = {}
+    for arch, depth in MC_FAMILIES.items():
+        fcfg = family_train_config(arch, depth)
+        seq = MC_CHECK_SEQ // 2 if fcfg.is_enc_dec else MC_CHECK_SEQ
+        fb = launch_train.batch_on(DataConfig(
+            vocab_size=fcfg.vocab_size, seq_len=seq,
+            global_batch=MC_CHECK_BATCH), 0, device)
+        if fcfg.is_enc_dec:
+            fb["enc_frames"] = torch.randn(
+                (MC_CHECK_BATCH, seq, fcfg.d_model), device=device,
+                generator=torch.Generator(device).manual_seed(3))
+        got = {}
+        for profile, fmesh in (("dp", mesh), ("tp", tmesh)):
+            rules = make_rules(fcfg, fmesh, batch_size=MC_CHECK_BATCH,
+                               profile=profile)
+            st = init_train_state(fcfg, generator=torch.Generator(
+                device).manual_seed(4), device=device, mesh=fmesh,
+                rules=rules)
+            t0 = time.perf_counter()
+            st, m = make_train_step(fcfg, opt, mesh=fmesh, rules=rules)(
+                st, local_batch(fb, fmesh, rules))
+            got[profile] = (float(m["loss"]), float(m["grad_norm"]),
+                            time.perf_counter() - t0)
+            del st
+        if fcfg.is_moe and rank == 0:
+            st = init_train_state(fcfg, generator=torch.Generator(
+                device).manual_seed(4), device=device)
+            st, m = make_train_step(fcfg, opt)(st, fb)
+            got["one"] = (float(m["loss"]), float(m["grad_norm"]), None)
+            del st
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        out[arch] = {"layers": depth, "seq": seq, **{
+            f"{name}_{k}": v[i] for k, v in got.items()
+            for i, name in enumerate(("loss", "grad_norm", "step_s"))}}
+    return out
 
 
 def multicard_rank(n: int, ckpt_dir: str, backend: str = "nccl") -> dict:
@@ -3537,13 +3707,19 @@ def multicard_rank(n: int, ckpt_dir: str, backend: str = "nccl") -> dict:
             / abs(on_mesh["loss"]),
             "param_max_abs": worst_all, "param_max_abs_clear": worst_clear,
             "lr": lr}
+    del st, on_mesh
+    torch.cuda.empty_cache()
+
+    # (e) the other families: a "tp" step against a "dp" step at full
+    # width, and MoE's "dp" step against the one-process step
+    out["e"] = mc_families(mesh, tmesh, opt, device, rank)
     dist.barrier()
     return out if rank == 0 else {"rank": rank}
 
 
 def phase_multicard(device) -> dict:
     """Multi-card (n = the cards this host has): (a) the sweep phase's
-    solo grid split over cuda:0..n-1 (over [cuda:0] x 4 on one card: the
+    solo grid split over cuda:0..n-1 (over [cuda:0] x 2 on one card: the
     same split-and-join code), every point bit-equal to the one-device
     run, ``n_devices`` = D, ``ata_probe_rank`` launched exactly as the
     slices owe; (b)-(d) n NCCL ranks (``multicard_rank``, started by
@@ -3572,7 +3748,7 @@ def phase_multicard(device) -> dict:
         raise AssertionError(f"(a) phase sweep's solo section ran on "
                              f"{solo['n_devices']} devices, want one")
     devices = ([torch.device("cuda", i) for i in range(n)] if n > 1
-               else [torch.device("cuda", 0)] * 4)
+               else [torch.device("cuda", 0)] * MC_SPLIT_ONE_CARD)
     grid = SweepGrid.from_points(points)
     with recorded_grid_runs() as runs:
         kmod.launches = 0
@@ -3614,7 +3790,7 @@ def phase_multicard(device) -> dict:
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     r0 = res[0]
-    out.update({k: r0[k] for k in ("b", "b_check", "c", "d")})
+    out.update({k: r0[k] for k in ("b", "b_check", "c", "d", "e")})
     out["ranks_s"] = ranks_s
     semantics = ("one-rank NCCL group: NCCL's calls, no multi-rank "
                  "semantics" if n == 1 else f"{n} NCCL ranks")
@@ -3653,9 +3829,28 @@ def phase_multicard(device) -> dict:
         f"{d['param_max_abs']:.3g} (limit {2 * d['lr']:.3g}), where |g| is "
         f"clear {d['param_max_abs_clear']:.3g} (limit "
         f"{1e-3 * d['lr']:.3g}); ranks {ranks_s:.1f} s; {card}")
+    for arch, e in out["e"].items():
+        one = (f"; 'dp' vs one process loss rel "
+               f"{abs(e['loss_dp'] - e['loss_one']) / abs(e['loss_one']):.3g}"
+               f" (limit {MC_LOSS_REL})" if "loss_one" in e else "")
+        log(f"(e) {arch} at full width, {e['layers']} layers, f32, B="
+            f"{MC_CHECK_BATCH} x T={e['seq']}: 'tp' on {tuple(d['mesh'])} "
+            f"loss {e['loss_tp']:.6f} vs 'dp' {e['loss_dp']:.6f} (|diff| "
+            f"{abs(e['loss_tp'] - e['loss_dp']):.3g}, limit {MC_TP_DP}); "
+            f"grad norms {e['grad_norm_tp']:.5g} / {e['grad_norm_dp']:.5g}; "
+            f"steps {e['step_s_tp']:.2f} / {e['step_s_dp']:.2f} s{one}; "
+            f"{card}")
     failed = []
     if not all(math.isfinite(x) for x in b["losses"]):
         failed.append(f"(b) non-finite losses {b['losses']}")
+    for arch, e in out["e"].items():
+        if not (math.isfinite(e["loss_tp"])
+                and abs(e["loss_tp"] - e["loss_dp"]) <= MC_TP_DP):
+            failed.append(f"(e) {arch} tp vs dp beyond {MC_TP_DP}: {e}")
+        if "loss_one" in e and not (abs(e["loss_dp"] - e["loss_one"])
+                                    <= MC_LOSS_REL * abs(e["loss_one"])):
+            failed.append(f"(e) {arch} dp vs one process beyond "
+                          f"{MC_LOSS_REL}: {e}")
     if not (bc["loss_rel"] <= MC_LOSS_REL
             and bc["m_leaf_rel"] <= CARD_CPU_LEAF_REL
             and bc["param_max_abs"] <= 2 * bc["lr"] + 1e-6
@@ -3671,6 +3866,98 @@ def phase_multicard(device) -> dict:
         failed.append(f"(d) tp / re-mesh beyond the limits: {d}")
     if failed:
         raise AssertionError("; ".join(failed))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase dryrun: the reference's dry run, three cells, in the background
+# ---------------------------------------------------------------------------
+#: three cells of ``launch/dryrun.py`` at full size on the 16 x 16 fake
+#: mesh (256 ranks, rank 0 traced on ``meta``): dense training, MoE decode
+#: against a sharded cache, the RWKV6 state at 0.5M tokens
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k"),
+                ("granite-moe-1b-a400m", "decode_32k"),
+                ("rwkv6-3b", "long_500k"))
+DRYRUN_TIMEOUT_S = 900
+DRYRUN_OUT = ROOT / "chiprun_out" / "dryrun_cells.json"
+DRYRUN_SCRIPT = """
+import json, sys
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch import dryrun as D
+cells = json.loads(sys.argv[2])
+json.dump([D.build_cell(a, s, False) for a, s in cells],
+          open(sys.argv[1], "w"), default=str)
+"""
+
+
+def start_dryrun():
+    """Start phase dryrun's process (no card: it traces on ``meta``); it
+    runs beside the other phases and :func:`phase_dryrun` joins it."""
+    import subprocess
+    DRYRUN_OUT.parent.mkdir(exist_ok=True)
+    if DRYRUN_OUT.exists():
+        DRYRUN_OUT.unlink()
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    log_f = open(DRYRUN_OUT.with_suffix(".log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_SCRIPT, str(DRYRUN_OUT),
+         json.dumps(DRYRUN_CELLS)], env=env, stdout=log_f,
+        stderr=subprocess.STDOUT)
+    return proc, time.perf_counter(), log_f
+
+
+def phase_dryrun(started) -> dict:
+    """Join phase dryrun's process (killed past DRYRUN_TIMEOUT_S from its
+    start) and check its records: every cell ``ok``, with its per-device
+    arguments, FLOPs and collective bytes, and the roofline terms on the
+    H100 constants (the dry run's model, not a measurement)."""
+    import subprocess
+    proc, t_start, log_f = started
+    try:
+        proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                              - (time.perf_counter() - t_start)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"phase dryrun not done after "
+                             f"{DRYRUN_TIMEOUT_S} s")
+    finally:
+        log_f.close()
+    if proc.returncode != 0 or not DRYRUN_OUT.exists():
+        tail = DRYRUN_OUT.with_suffix(".log").read_text()[-3000:]
+        raise AssertionError(f"phase dryrun exited {proc.returncode}: "
+                             f"{tail}")
+    recs = json.loads(DRYRUN_OUT.read_text())
+    out = {"wall_s": time.perf_counter() - t_start, "cells": {}}
+    for r in recs:
+        tag = f"{r['arch']} {r['shape']} {r['mesh']}"
+        if r.get("status") != "ok":
+            raise AssertionError(f"dryrun {tag}: {r}")
+        m, o, t = r["memory"], r["ops"], r["roofline"]
+        if not (m["argument_bytes_per_device"] > 0
+                and o["dot_flops_per_device"] > 0):
+            raise AssertionError(f"dryrun {tag}: empty counts {r}")
+        out["cells"][tag] = {
+            "trace_s": r["trace_s"], "peak_estimate_gb":
+                m["peak_estimate_gb"],
+            "argument_bytes": m["argument_bytes_per_device"],
+            "dot_flops": o["dot_flops_per_device"],
+            "collective_bytes": o["collective_bytes_per_device"],
+            "dominant": t["dominant"], "compute_s": t["compute_s"],
+            "memory_s": t["memory_s"], "collective_s": t["collective_s"],
+            "useful_flops_ratio": t["useful_flops_ratio"]}
+        log(f"dryrun {tag} (256 fake ranks, rank 0 on meta; the dry run's "
+            f"model on the H100 data sheet's constants): traced in "
+            f"{r['trace_s']} s; per device {m['argument_bytes_per_device']}"
+            f" argument bytes, peak estimate {m['peak_estimate_gb']} GB, "
+            f"{o['dot_flops_per_device']:.4g} dot FLOPs, collectives "
+            f"{o['collective_bytes_per_device']}; compute "
+            f"{t['compute_s']:.4g} s, memory {t['memory_s']:.4g} s, "
+            f"collective {t['collective_s']:.4g} s: {t['dominant']}")
+    if len(out["cells"]) != len(DRYRUN_CELLS):
+        raise AssertionError(f"dryrun: {len(out['cells'])} records")
     return out
 
 
@@ -3694,6 +3981,47 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
+    if sys.argv[1:] == ["multicard"]:
+        return multicard_alone(device, card)
+    dryrun = start_dryrun()
+    try:
+        return run_phases(device, card, dryrun)
+    finally:
+        if dryrun[0].poll() is None:
+            dryrun[0].kill()
+            dryrun[0].wait()
+
+
+def multicard_alone(device, card: str) -> int:
+    """Phase multicard alone: the kernels built and phase sweep's solo
+    section (the sensitivity report's first grid run, at 96 rounds)
+    made first, as the whole run makes them."""
+    import torch
+    from repro_torch.core import report as sens
+    phase_build()
+    with recorded_grid_runs() as runs:
+        rep = sens.run_sensitivity(rounds=96, kernels_per_app=1,
+                                   device=device)
+    _SWEEP_REPORT.update(rep)
+    _SWEEP_SOLO[:] = runs[0]
+    t0 = time.perf_counter()
+    out = phase_multicard(device)
+    log(f"phase multicard: {time.perf_counter() - t0:.2f} s")
+    REPORT.parent.mkdir(exist_ok=True)
+    (REPORT.parent / "multicard_report.json").write_text(
+        json.dumps(out, indent=1, default=str) + "\n")
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_phases(device, card: str, dryrun) -> int:
+    """Every phase in order, phase dryrun's process (started by
+    :func:`start_dryrun`) joined last; then the result lines. Returns 1,
+    with no result line, when any phase failed."""
+    import torch
     phases, report, failed = {}, {"card": card}, {}
     for name, fn in (("build", phase_build),
                      ("kernels", lambda: phase_kernels(device)),
@@ -3714,7 +4042,8 @@ def main() -> int:
                      ("lm_serve", lambda: phase_lm_serve(device)),
                      ("lm_families", lambda: phase_lm_families(device)),
                      ("train", lambda: phase_train(device)),
-                     ("multicard", lambda: phase_multicard(device))):
+                     ("multicard", lambda: phase_multicard(device)),
+                     ("dryrun", lambda: phase_dryrun(dryrun))):
         t0 = time.perf_counter()
         try:
             report[name] = fn()

@@ -30,15 +30,25 @@ HBM, and 67 T operations per second on the CUDA cores (f32 flops, which
 is also the rate this model takes for int32 compares). ``chip_smoke.py``
 takes its bounds from these same functions.
 
-The reference's dry-run roofline (XLA HLO artifacts of the LM configs) is
-not here: it belongs with the port of its dry run.
+The dry-run table (:func:`load`, :func:`fraction`, :func:`table`; the
+reference's ``benchmarks/roofline.py:37-78``) reads the records of
+``launch/dryrun.py`` (``results/dryrun_torch/*.json``): per (arch x
+shape) of a mesh, the three roofline terms, the dominant one, the useful
+FLOP ratio and the roofline fraction (MODEL_FLOPS / chips / peak over
+the largest term: the score a perfect implementation would push to 1),
+on the H100's bf16 peak. These are the dry run's model on the data
+sheet's constants, not measurements.
 
-Usage (on the CUDA card; ``--device cpu`` prints the model alone):
+Usage (on the CUDA card; ``--device cpu`` prints the model alone;
+``--dryrun sp|mp`` prints the dry-run table, no card needed):
   PYTHONPATH=src python -m repro_torch.launch.roofline
 """
 from __future__ import annotations
 
 import argparse
+import glob
+import json
+import pathlib
 import sys
 from typing import List, Optional
 
@@ -245,10 +255,72 @@ def print_kernel_table(device=None):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the dry-run table
+# ---------------------------------------------------------------------------
+RESULTS = (pathlib.Path(__file__).resolve().parents[3] / "results"
+           / "dryrun_torch")
+
+
+def load(mesh="sp", results=None):
+    """The dry-run records of one mesh ("sp" 16 x 16, "mp" 2 x 16 x 16),
+    in file-name order."""
+    rows = []
+    for f in sorted(glob.glob(str(pathlib.Path(results or RESULTS)
+                                  / f"*__{mesh}.json"))):
+        with open(f) as fh:
+            rows.append(json.load(fh))
+    return rows
+
+
+def fraction(r, peak=BF16_OPS_PER_S):
+    """The roofline fraction of an ``ok`` record: MODEL_FLOPS a chip at
+    ``peak`` over the largest of its three terms; None otherwise."""
+    if r["status"] != "ok":
+        return None
+    t = r["roofline"]
+    ideal = t["model_flops_global"] / r["chips"] / peak
+    worst = max(t["compute_s"], t["memory_s"], t["collective_s"])
+    return ideal / worst if worst else None
+
+
+def table(mesh="sp", results=None, peak=BF16_OPS_PER_S):
+    """One row per record: (arch, shape, SKIP, reason), (arch, shape,
+    ERR, error) or (arch, shape, dominant, compute s, memory s,
+    collective s, useful FLOP ratio, roofline fraction, peak GB)."""
+    rows = []
+    for r in load(mesh, results):
+        if r["status"] == "skipped":
+            rows.append((r["arch"], r["shape"], "SKIP", r.get("reason", "")))
+            continue
+        if r["status"] != "ok":
+            rows.append((r["arch"], r["shape"], "ERR",
+                         r.get("error", "")[:60]))
+            continue
+        t = r["roofline"]
+        frac = fraction(r, peak)
+        rows.append((
+            r["arch"], r["shape"], t["dominant"],
+            f"{t['compute_s']:.4f}", f"{t['memory_s']:.4f}",
+            f"{t['collective_s']:.4f}",
+            f"{t['useful_flops_ratio']:.2f}"
+            if t["useful_flops_ratio"] else "-",
+            f"{frac:.3f}" if frac else "-",
+            f"{r['memory']['peak_estimate_gb']:.1f}GB",
+        ))
+    return rows
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dryrun", choices=("sp", "mp"), default=None,
+                    help="print the dry-run table of this mesh instead")
     args = ap.parse_args(argv)
+    if args.dryrun:
+        for row in table(args.dryrun):
+            print(" ".join(str(c) for c in row))
+        return 0
     from repro_torch.core.simulator import resolve_device
     print_kernel_table(device=resolve_device(args.device))
     return 0

@@ -29,7 +29,7 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding.rules import annotate
+from repro_torch.sharding.rules import annotate, place_new
 
 NEG_INF = -1e30
 
@@ -57,7 +57,11 @@ class Attention(nn.Module):
 
 def _project_qkv(p: Attention, cfg: ModelConfig, x, kv_x=None, *,
                  positions=None, rope_on: bool = True, kv_repeat: int = 1):
-    kv_x = x if kv_x is None else kv_x
+    # whole along the sequence (the cross-attention's inputs come from a
+    # sequence-sharded residual stream, whose (B, T) flatten in the
+    # projections has no rule in torch 2.11)
+    x = annotate(x, "batch", "seq", "embed")
+    kv_x = x if kv_x is None else annotate(kv_x, "batch", "seq", "embed")
     q = layers.dense(p.wq, x)                         # (B,T,H,hd)
     k = layers.dense(p.wk, kv_x)                      # (B,Tk,KV,hd)
     v = layers.dense(p.wv, kv_x)
@@ -148,26 +152,48 @@ def blocked_attention(q, k, v, *, causal: bool, window: Optional[int],
     return torch.cat(outs, dim=2)
 
 
-def _per_shard(fn, q, k, v, **kw):
+def _per_shard(fn, q, k, v, *, whole_ok: bool = False, **kw):
     """``fn(q, k, v, **kw)`` on (B, H, T, D) tensors. Under tensor
     parallelism (DTensors) it runs on each rank's shards and rewraps the
     result: attention is independent per (batch, head), and the rules
     shard q, k and v over those two axes only, alike (the query heads'
     blocks use the matching blocks of KV heads), so the shards are
-    exact. DTensor's own rule for the score einsum's flatten of a
-    head-sharded (B, H) fails in torch 2.11."""
+    exact. Where the query heads are sharded and the KV heads are whole
+    (a KV head count the model axis does not divide), each rank takes the
+    KV heads its query heads use. DTensor keyword arguments (per-row
+    lengths) are taken as their shards. DTensor's own rule for the score
+    einsum's flatten of a head-sharded (B, H) fails in torch 2.11. Other
+    placements raise, or with ``whole_ok`` run ``fn`` on the DTensors."""
     if not hasattr(q, "to_local"):
         return fn(q, k, v, **kw)
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    pl = tuple(q.placements)
-    if (tuple(k.placements) != pl or tuple(v.placements) != pl
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    pl, kpl = tuple(q.placements), tuple(k.placements)
+    if (tuple(v.placements) != kpl
             or any(p != Replicate()
                    and not (isinstance(p, Shard) and p.dim in (0, 1))
-                   for p in pl)):
+                   for p in pl)
+            or any(a != b and not (a == Shard(1) and b == Replicate())
+                   for a, b in zip(pl, kpl))):
+        if whole_ok:
+            return fn(q, k, v, **kw)
         raise ValueError(f"attention over q {pl}, k {k.placements}, v "
                          f"{v.placements}: only batch and heads may be "
                          "sharded, alike in all three")
-    o = fn(q.to_local(), k.to_local(), v.to_local(), **kw)
+    # a rank's gradient of KV heads it takes a part of is a partial sum
+    gpl = tuple(Partial() if a != b else b for a, b in zip(pl, kpl))
+    kl, vl = k.to_local(grad_placements=gpl), v.to_local(grad_placements=gpl)
+    ql = q.to_local()
+    if kpl != pl:
+        _, off = compute_local_shape_and_global_offset(
+            q.shape, q.device_mesh, pl)
+        g, h = q.shape[1] // k.shape[1], ql.shape[1]
+        kl = kl.repeat_interleave(g, dim=1)[:, off[1]:off[1] + h]
+        vl = vl.repeat_interleave(g, dim=1)[:, off[1]:off[1] + h]
+    kw = {n: a.to_local() if isinstance(a, DTensor) else a
+          for n, a in kw.items()}
+    o = fn(ql, kl, vl, **kw)
     shape = tuple(q.shape[:3]) + tuple(v.shape[3:])
     stride = torch.empty(shape, device="meta").stride()
     return DTensor.from_local(o, q.device_mesh, pl, run_check=False,
@@ -195,11 +221,17 @@ def attention_forward(p: Attention, cfg: ModelConfig, x, *, positions,
 # ---------------------------------------------------------------------------
 # decode path
 # ---------------------------------------------------------------------------
+#: the logical axes of a KV cache leaf (k, v and the int8 scales)
+CACHE_AXES = ("batch", "cache_kv_heads", "cache_seq", "head_dim")
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   kv_repeat: int = 1, dtype=torch.bfloat16, *,
                   device) -> Dict[str, torch.Tensor]:
     """KV cache; cfg.kv_cache_dtype == "int8" stores scale-quantized int8
-    payloads with per-(pos, head) f32 scales."""
+    payloads with per-(pos, head) f32 scales. Under a rules context the
+    leaves are DTensors placed by :data:`CACHE_AXES` (heads over "model"
+    when head-TP, else the cache sequence)."""
     kvh = cfg.n_kv_heads * kv_repeat
     shape = (batch, kvh, max_len, cfg.head_dim)
     if cfg.kv_cache_dtype == "int8":
@@ -212,7 +244,9 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
     else:
         cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
                  "v": torch.zeros(shape, dtype=dtype, device=device)}
-    cache["len"] = torch.zeros((batch,), dtype=torch.int32, device=device)
+    cache = {n: place_new(t, *CACHE_AXES) for n, t in cache.items()}
+    cache["len"] = place_new(
+        torch.zeros((batch,), dtype=torch.int32, device=device), "batch")
     return cache
 
 
@@ -252,44 +286,62 @@ def attention_decode(p: Attention, cfg: ModelConfig, x, cache: Dict, *,
         cv = torch.where(sel4, vq, cache["v"])
         cks = torch.where(sel4, ks, cache["k_scale"])
         cvs = torch.where(sel4, vs, cache["v_scale"])
-        new_cache["k_scale"] = cks
-        new_cache["v_scale"] = cvs
+        new_cache["k_scale"] = cks = annotate(cks, *CACHE_AXES)
+        new_cache["v_scale"] = cvs = annotate(cvs, *CACHE_AXES)
         kk_full = ck.float() * cks
         vv_full = cv.float() * cvs
     else:
         ck = torch.where(sel4, knew.to(cache["k"].dtype), cache["k"])
         cv = torch.where(sel4, vnew.to(cache["v"].dtype), cache["v"])
         kk_full, vv_full = ck, cv
-    new_cache["k"] = ck
-    new_cache["v"] = cv
+    new_cache["k"] = ck = annotate(ck, *CACHE_AXES)
+    new_cache["v"] = cv = annotate(cv, *CACHE_AXES)
     new_len = cache["len"] + 1
     valid = torch.clamp_max(new_len, S) if ring else new_len
+    o = _per_shard(_decode_attend, q.transpose(1, 2), kk_full, vv_full,
+                   whole_ok=True, valid=valid, new_len=new_len,
+                   window=None if ring else window,
+                   scale=cfg.head_dim ** -0.5)
+    o = o.transpose(1, 2).to(x.dtype)                 # (B,1,H,hd)
+    new_cache["len"] = new_len
+    return _out_proj(p, o), new_cache
 
-    B, Hq = q.shape[0], q.shape[2]
-    Hkv, hd = ck.shape[1], ck.shape[3]
+
+def _decode_attend(q, kk, vv, *, valid, new_len, window, scale):
+    """One query row per (batch, head) against the cache: q (B, H, 1, hd),
+    kk and vv (B, KV, S, hd); positions at and past ``valid`` (B,) and,
+    with ``window``, before it are masked. Returns (B, H, 1, hd) in vv's
+    dtype."""
+    B, Hq, _, hd = q.shape
+    Hkv, S = kk.shape[1], kk.shape[2]
     g = Hq // Hkv
-    qt = q.transpose(1, 2).reshape(B, Hkv, g, 1, hd)  # query head h -> h//g
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qt.float(),
-                     kk_full.float()) * cfg.head_dim ** -0.5
-    kpos = torch.arange(S, device=x.device)[None, None, None, None, :]
+    qt = q.reshape(B, Hkv, g, 1, hd)                  # query head h -> h//g
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qt.float(), kk.float()) * scale
+    kpos = torch.arange(S, device=q.device)[None, None, None, None, :]
     mask = kpos < valid[:, None, None, None, None]
-    if window is not None and not ring:
+    if window is not None:
         mask &= kpos > (new_len[:, None, None, None, None] - 1 - window)
     s = torch.where(mask, s, NEG_INF)
     pr = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bhkd->bhgqd", pr.to(vv_full.dtype), vv_full)
-    o = o.reshape(B, Hq, 1, hd).transpose(1, 2).to(x.dtype)  # (B,1,H,hd)
-    new_cache["len"] = new_len
-    return _out_proj(p, o), new_cache
+    o = torch.einsum("bhgqk,bhkd->bhgqd", pr.to(vv.dtype), vv)
+    return o.reshape(B, Hq, 1, hd)
+
+
+def _cross_attend(q, k, v, *, scale):
+    """q (B, H, 1, hd) against k and v (B, H, Se, hd), unmasked; the
+    result in v's dtype."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    pr = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", pr.to(v.dtype), v)
 
 
 def cross_attention_decode(p: Attention, cfg: ModelConfig, x, k, v):
     """One decode row x (B, 1, d) against an encoder-decoder's
     precomputed cross keys and values (B, KV, Se, hd): the reference's
-    einsum path (no kernel, no rope, no mask)."""
+    einsum path (no kernel, no rope, no mask), per shard under tensor
+    parallelism (the scores' flatten of a batch- and head-sharded (B, H)
+    fails in torch 2.11)."""
     q = layers.dense(p.wq, x).transpose(1, 2)               # (B,H,1,hd)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
-    s = s * cfg.head_dim ** -0.5
-    pr = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bhkd->bhqd", pr.to(v.dtype), v).transpose(1, 2)
-    return _out_proj(p, o)
+    o = _per_shard(_cross_attend, q, k, v, whole_ok=True,
+                   scale=cfg.head_dim ** -0.5)
+    return _out_proj(p, o.transpose(1, 2))

@@ -7,7 +7,9 @@ through ``ops.wkv6``: the "kernel" route takes the Hopper kernel's
 wrapper, "ref" and "blocked" its plain version, as the reference maps its
 routes. The RG-LRU recurrence has no TPU kernel in the reference (a
 ``lax.associative_scan``); here it is a log-depth doubling scan in plain
-PyTorch (:func:`_rglru_scan`).
+PyTorch (:func:`_rglru_scan`). The reference's sharding annotations sit
+where its do (RWKV6's r, v, o; the RG-LRU's ``xb`` and ``h``); under
+tensor parallelism both recurrences run on each rank's shards.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.rules import annotate, grad_as_placed
 
 MIX_NAMES = ("r", "k", "v", "w", "g")
 
@@ -78,7 +81,14 @@ def _rwkv_rkvwg(p: RWKV6, cfg: ModelConfig, mixed):
     B, T = mixed["r"].shape[:2]
 
     def heads(t):
-        return t.reshape(B, T, H, K).transpose(1, 2)        # (B,H,T,K)
+        # under tensor parallelism v's (B, T, d) is sharded over its flat
+        # channels (H * V); those shards need not hold whole heads (40
+        # heads over 16), which DTensor cannot unflatten: the channels are
+        # gathered first, and v is sharded again over V (its annotation).
+        # The gradient comes back sharded over V, which torch 2.11 cannot
+        # flatten into (B, T, d): it is gathered at the split
+        t = annotate(t, "batch", "seq", "embed")
+        return grad_as_placed(t.reshape(B, T, H, K)).transpose(1, 2)
 
     r = heads(layers.dense(p.w_r, mixed["r"]))
     k = heads(layers.dense(p.w_k, mixed["k"]))
@@ -104,13 +114,62 @@ def rwkv6_forward(p: RWKV6, cfg: ModelConfig, x, state: Optional[Dict] = None
     mixed, new_shift = _rwkv_mix(p, x, state["shift"])
     r, k, v, w, g = _rwkv_rkvwg(p, cfg, mixed)
     impl = "ref" if cfg.attention_impl in ("ref", "blocked") else "kernel"
-    o, wkv = ops.wkv6(r, k, v, w, p.u.float(), state["wkv"], impl=impl,
-                      **({"chunk": cfg.wkv_chunk} if impl != "ref" else {}))
-    o = o.transpose(1, 2).reshape(B, T, d)                   # (B,T,d)
-    o = layers.groupnorm(p.ln_scale.float(), p.ln_bias.float(), o, H)
+    r = annotate(r, "batch", "rheads", "seq", "rkey")
+    v = annotate(v, "batch", "rheads", "seq", "rvalue")
+    o, wkv = _wkv6_per_shard(
+        r, k, v, w, p.u.float(), state["wkv"], impl=impl,
+        **({"chunk": cfg.wkv_chunk} if impl != "ref" else {}))
+    o = annotate(o, "batch", "rheads", "seq", "rvalue")
+    # torch 2.11 refuses to flatten (H, V) with V sharded: V is gathered
+    # first; the flat output's gradient is kept whole (see heads())
+    o = annotate(o, "batch", "rheads", "seq", None)
+    o = grad_as_placed(o.transpose(1, 2).reshape(B, T, d))   # (B,T,d)
+    # the group norm's (d,) scale and bias are sharded over "model" like
+    # v's flat channels: taken whole, so that its reshapes (and their
+    # backward) never split channels that do not hold whole heads
+    o = grad_as_placed(layers.groupnorm(
+        annotate(p.ln_scale.float(), None), annotate(p.ln_bias.float(), None),
+        o, H))
     o = o.to(x.dtype) * F.silu(g)
     y = layers.dense(p.w_out, o)
     return y.to(x.dtype), {"shift": new_shift, "wkv": wkv}
+
+
+def _wkv6_per_shard(r, k, v, w, u, s0, **kw):
+    """``ops.wkv6`` on each rank's shards under tensor parallelism
+    (DTensors), exact: the recurrence is independent per (batch, head,
+    value channel), and the rules shard v, the state and o over the batch
+    and the value channel ("rvalue") only. r, k, w and u are taken whole
+    along the value channel, so a rank's gradient of them is a partial
+    sum over the ranks that split it. DTensor has no cheap way through
+    the T-step loop: this runs it on plain tensors."""
+    if not hasattr(v, "to_local"):
+        return ops.wkv6(r, k, v, w, u, s0, **kw)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh, vpl = v.device_mesh, tuple(v.placements)
+    if any(p != Replicate() and p not in (Shard(0), Shard(3)) for p in vpl):
+        raise ValueError(f"wkv6 over v {vpl}: only the batch and the value "
+                         "channel may be sharded")
+    # r, k, w: v's batch shards, whole along the value channel
+    rpl = tuple(p if p == Shard(0) else Replicate() for p in vpl)
+    gpl = tuple(p if p == Shard(0) else
+                Partial() if p == Shard(3) else Replicate() for p in vpl)
+    rl, kl, wl = (t.redistribute(mesh, rpl).to_local(grad_placements=gpl)
+                  for t in (r, k, w))
+    upl = tuple(Partial() if p != Replicate() else Replicate() for p in vpl)
+    ul = u.redistribute(mesh, (Replicate(),) * mesh.ndim).to_local(
+        grad_placements=upl)
+    sl = (None if s0 is None else s0.redistribute(mesh, vpl).to_local()
+          if isinstance(s0, DTensor) else None)
+    o, sf = ops.wkv6(rl, kl, v.to_local(), wl, ul, sl, **kw)
+    B, H, T, _ = r.shape
+    V, K = v.shape[-1], r.shape[-1]
+
+    def wrap(t, shape):
+        return DTensor.from_local(
+            t, mesh, vpl, run_check=False, shape=shape,
+            stride=torch.empty(shape, device="meta").stride())
+    return wrap(o, (B, H, T, V)), wrap(sf, (B, H, K, V))
 
 
 def rwkv6_decode(p: RWKV6, cfg: ModelConfig, x, state
@@ -183,16 +242,40 @@ def _rglru_scan(a, gx):
     return b
 
 
+def _scan_per_shard(a, gx):
+    """:func:`_rglru_scan` on each rank's shards under tensor parallelism
+    (DTensors; exact: the scan is elementwise along the batch and
+    channels, and a and gx share their placements, whole along T). The
+    doubling scan's slices and ``torch.cat`` along T would take a
+    DTensor dispatch each."""
+    if not hasattr(a, "to_local"):
+        return _rglru_scan(a, gx)
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh, pl = a.device_mesh, tuple(a.placements)
+    if any(p != Replicate() and p.dim == 1 for p in pl):
+        pl = tuple(Replicate() if p != Replicate() and p.dim == 1 else p
+                   for p in pl)
+        a = a.redistribute(mesh, pl)
+    b = _rglru_scan(a.to_local(), gx.redistribute(mesh, pl).to_local())
+    return DTensor.from_local(b, mesh, pl, run_check=False,
+                              shape=a.shape, stride=a.stride())
+
+
 def rglru_forward(p: RGLRU, cfg: ModelConfig, x, state: Optional[Dict] = None
                   ) -> Tuple[torch.Tensor, Dict]:
     """x (B,T,d); state {"conv": (B,W-1,d), "h": (B,d)} or None."""
     gate = F.gelu(layers.dense(p.w_gate, x), approximate="tanh")
-    xb = layers.dense(p.w_x, x)
+    xb = annotate(layers.dense(p.w_x, x), "batch", "seq", "rnn")
     conv_state = None if state is None else state["conv"]
     xb, new_conv = _causal_conv(p, xb, conv_state)
 
-    i_t = torch.sigmoid(layers.dense(p.wi, xb).float())
-    r_t = torch.sigmoid(layers.dense(p.wr, xb).float())
+    # the gates' input whole along "rnn" (their kernels shard the output
+    # channels): DTensor's own plan for the contraction over a sharded
+    # dim would add the sharded bias to a partial sum, which torch 2.11
+    # cannot place
+    xw = annotate(xb, "batch", "seq", "embed")
+    i_t = torch.sigmoid(layers.dense(p.wi, xw).float())
+    r_t = torch.sigmoid(layers.dense(p.wr, xw).float())
     # a = sigmoid(lam)^(c * r): log a = -c * r * softplus(-lam)
     log_a = -cfg.lru_c * r_t * F.softplus(-p.lam.float())
     a_t = torch.exp(log_a)
@@ -202,7 +285,8 @@ def rglru_forward(p: RGLRU, cfg: ModelConfig, x, state: Optional[Dict] = None
         # fold initial h into the first step: h_1 = a_1 h_0 + gx_1
         gx = torch.cat([gx[:, :1] + (a_t[:, 0] * state["h"].float())[:, None],
                         gx[:, 1:]], dim=1)
-    h = _rglru_scan(a_t, gx).to(x.dtype)                      # (B,T,d)
+    h = annotate(_scan_per_shard(a_t, gx).to(x.dtype),
+                 "batch", "seq", "rnn")                        # (B,T,d)
     y = layers.dense(p.w_out, h * gate)
     return y, {"conv": new_conv, "h": h[:, -1]}
 

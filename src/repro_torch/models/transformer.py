@@ -47,7 +47,7 @@ from repro_torch.core.simulator import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, recurrent
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding.rules import annotate
+from repro_torch.sharding.rules import annotate, place_new
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -228,9 +228,12 @@ def _block_forward(p: Block, cfg: ModelConfig, x, *, positions,
     x = x + a
     if p.xattn is not None:
         hx = layers.rmsnorm(p.norm_x, x, cfg.norm_eps)
-        x = x + attn.attention_forward(p.xattn, cfg, hx, positions=None,
-                                       kv_x=enc_out, causal=False,
-                                       rope_on=False)
+        c = attn.attention_forward(p.xattn, cfg, hx, positions=None,
+                                   kv_x=enc_out, causal=False, rope_on=False)
+        # sequence-sharded before the residual add, as the mixer's output
+        # (its gradient then reaches the projection whole along the
+        # sequence, whose (B, T) flatten torch 2.11 needs)
+        x = x + annotate(c, "batch", "seq_boundary", "embed")
     h2 = annotate(layers.rmsnorm(p.norm2, x, cfg.norm_eps),
                   "batch", "seq", "embed")
     if cfg.is_moe:
@@ -284,7 +287,11 @@ def embed_tokens(params: Transformer, cfg: ModelConfig, tokens):
 
 
 def lm_logits(params: Transformer, cfg: ModelConfig, x):
-    x = layers.rmsnorm(params.final_norm, x, cfg.norm_eps)
+    # under tensor parallelism the residual stream is sequence-sharded;
+    # the head's flatten of (B, T) with T sharded has no rule in torch
+    # 2.11: the sequence is gathered first (as the loss does)
+    x = annotate(layers.rmsnorm(params.final_norm, x, cfg.norm_eps),
+                 "batch", "seq", "embed")
     if params.lm_head is None:
         logits = x @ params.embed.table.to(x.dtype).T
     else:
@@ -302,7 +309,9 @@ def encode(params: Transformer, cfg: ModelConfig, enc_frames):
     x, _ = _run_stack(params.encoder, cfg, x, period=1,
                       n_stacked=len(params.encoder), positions=pos,
                       causal=False)
-    return layers.rmsnorm(params.enc_norm, x, cfg.norm_eps)
+    # whole along the sequence: the cross keys and values project it
+    return annotate(layers.rmsnorm(params.enc_norm, x, cfg.norm_eps),
+                    "batch", "seq", "embed")
 
 
 def _enc_out(params: Transformer, cfg: ModelConfig, enc_frames):
@@ -353,15 +362,28 @@ def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
         c["len"].fill_(start_len)
         return c
     if kind == "rglru":
-        return {"conv": torch.zeros((batch, cfg.conv_width - 1,
-                                     cfg.d_model), dtype=dt, device=device),
-                "h": torch.zeros((batch, cfg.d_model), dtype=dt,
-                                 device=device)}
+        return {"conv": place_new(torch.zeros(
+                    (batch, cfg.conv_width - 1, cfg.d_model), dtype=dt,
+                    device=device), *STATE_AXES["conv"]),
+                "h": place_new(torch.zeros((batch, cfg.d_model), dtype=dt,
+                                           device=device),
+                               *STATE_AXES["h"])}
     K = cfg.rwkv_head_dim
     H = cfg.d_model // K
-    return {"shift": torch.zeros((batch, cfg.d_model), dtype=dt,
-                                 device=device),
-            "wkv": torch.zeros((batch, H, K, K), device=device)}
+    return {"shift": place_new(torch.zeros((batch, cfg.d_model), dtype=dt,
+                                           device=device),
+                               *STATE_AXES["shift"]),
+            "wkv": place_new(torch.zeros((batch, H, K, K), device=device),
+                             *STATE_AXES["wkv"])}
+
+
+#: the logical axes of the recurrent blocks' decode state (the
+#: reference's cache patterns, ``launch/specs.py``); under a rules
+#: context the leaves are DTensors placed by them
+STATE_AXES = {"shift": ("batch", "embed"),
+              "wkv": ("batch", "rheads", "rkey", "rvalue"),
+              "conv": ("batch", None, "rnn"),
+              "h": ("batch", "rnn")}
 
 
 CROSS_KEYS = ("cross_k", "cross_v")
@@ -374,7 +396,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     encoder-decoder needs ``params`` and ``enc_frames``: each stacked
     layer's cross-attention keys and values over the encoder's output are
     computed here once (the reference's ``cache["cross"]``; remainder
-    layers get none, as there)."""
+    layers get none, as there). Under a rules context every leaf is a
+    DTensor, placed as the reference's cache shardings place it
+    (:data:`~repro_torch.models.attention.CACHE_AXES`,
+    :data:`STATE_AXES`)."""
     check_supported(cfg)
     device = resolve_device(device)
     keys = layer_keys(cfg)
@@ -388,7 +413,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         for (stack, _, _), p, c in zip(keys, params.layers, cache):
             if stack == "layers":
                 for key, w in zip(CROSS_KEYS, (p.xattn.wk, p.xattn.wv)):
-                    c[key] = layers.dense(w, enc_out).transpose(1, 2)
+                    c[key] = annotate(layers.dense(w, enc_out).transpose(
+                        1, 2), *attn.CACHE_AXES)
     return cache
 
 
@@ -404,6 +430,10 @@ def _block_decode(p: Block, cfg: ModelConfig, x, bcache):
         a, bcache = attn.attention_decode(p.attn, cfg, h, bcache,
                                           window=window,
                                           kv_repeat=cfg.kv_repeat)
+    if p.kind in ("rwkv6", "rglru"):
+        # the state keeps the cache's placements (the reference's
+        # out_shardings)
+        bcache = {k: annotate(t, *STATE_AXES[k]) for k, t in bcache.items()}
     x = x + a
     if p.xattn is not None and cross:
         hx = layers.rmsnorm(p.norm_x, x, cfg.norm_eps)

@@ -136,12 +136,21 @@ def _data_dims(mesh) -> Tuple[int, ...]:
 
 
 def zero1_placements(param_placements: Mapping[str, tuple], mesh,
-                     params) -> Dict[str, object]:
+                     params, stacked: Optional[Mapping[str, int]] = None
+                     ) -> Dict[str, object]:
     """m/v placements = the parameter's, plus the data axes on the first
     tensor dimension that no mesh axis shards and the data size divides
     (the reference's ``zero1_shardings``); ``params`` gives the shapes
     (a module or {name: tensor}, ``meta`` tensors too). The step is
-    replicated."""
+    replicated.
+
+    The reference stacks a layer's leaf over the layers of its stack
+    (``stacked``: {name: that count}); when the data size divides the
+    count, its ZeRO-1 takes that axis, which the port's one-layer leaf
+    lacks. Such a leaf with no free dimension the data size divides (a
+    vector sharded over "model") then has the data axes split its model
+    shards further (nested), so that a device holds the reference's
+    bytes."""
     from torch.distributed.tensor import Replicate, Shard
     ddims = _data_dims(mesh)
     dsize = 1
@@ -150,12 +159,23 @@ def zero1_placements(param_placements: Mapping[str, tuple], mesh,
 
     def extend(name, shape):
         pl = list(param_placements[name])
-        taken = {p.dim for p in pl if isinstance(p, Shard)}
+        ways = {}
+        for d, p in enumerate(pl):
+            if isinstance(p, Shard):
+                ways[p.dim] = ways.get(p.dim, 1) * mesh.mesh.shape[d]
+        if dsize == 1:
+            return tuple(pl)
         for i, dim in enumerate(shape):
-            if i not in taken and dsize > 1 and dim % dsize == 0:
+            if i not in ways and dim % dsize == 0:
                 for d in ddims:
                     pl[d] = Shard(i)
-                break
+                return tuple(pl)
+        if stacked and stacked.get(name, 1) % dsize == 0:
+            for i, w in sorted(ways.items()):
+                if shape[i] % (w * dsize) == 0:
+                    for d in ddims:
+                        pl[d] = Shard(i)
+                    break
         return tuple(pl)
 
     mv = {k: extend(k, tuple(t.shape)) for k, t in named(params).items()}

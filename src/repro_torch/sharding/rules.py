@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import re
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -87,11 +87,28 @@ def logical_to_spec(axes: Axes, rules: Rules, mesh) -> tuple:
     return tuple(out)
 
 
+def _divisible(shape, placements, mesh) -> tuple:
+    """``placements`` with every tensor dimension that the product of its
+    mesh axes does not divide left replicated (the same values as the
+    reference's padded shards, in another layout), and no shard over a
+    mesh axis of size 1 (DTensor's views refuse to fold a dimension
+    "sharded" one way, as a group axis of size 1)."""
+    from torch.distributed.tensor import Replicate, Shard
+    ways: Dict[int, int] = {}
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            ways[p.dim] = ways.get(p.dim, 1) * mesh.mesh.shape[i]
+    return tuple(Replicate() if isinstance(p, Shard) and (
+        shape[p.dim] % ways[p.dim] or mesh.mesh.shape[i] == 1) else p
+        for i, p in enumerate(placements))
+
+
 def annotate(x, *axes: Optional[str]):
     """Redistribute a DTensor to the placements its logical ``axes`` get
     under the active rules (the reference's ``with_sharding_constraint``).
-    Outside :func:`rules_context`, and for a plain tensor, ``x`` is
-    returned as it is."""
+    A dimension that its mesh axes do not divide stays replicated (XLA
+    pads it instead). Outside :func:`rules_context`, and for a plain
+    tensor, ``x`` is returned as it is."""
     ctx = _current()
     if ctx is None:
         return x
@@ -99,10 +116,134 @@ def annotate(x, *axes: Optional[str]):
     if not isinstance(x, DTensor):
         return x
     mesh, rules = ctx
-    want = logical_to_spec(axes, rules, mesh)
+    want = _divisible(x.shape, logical_to_spec(axes, rules, mesh), mesh)
     if tuple(x.placements) == want:
         return x
     return x.redistribute(mesh, want)
+
+
+def grad_as_placed(x):
+    """``x`` itself, with its gradient made to arrive in ``x``'s own
+    placements. DTensor leaves a gradient in whatever placements the
+    later ops give it, and a view's backward cannot always take those
+    (the unflatten of channels sharded 16 ways that do not hold whole
+    heads). A plain tensor is returned as it is."""
+    if not hasattr(x, "to_local"):
+        return x
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(x.to_local(), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def place_new(t: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+    """A tensor made inside the model (a decode cache's zeros), the same
+    on every rank, as a DTensor placed by its logical ``axes`` under the
+    active rules (the reference's ``annotate`` of a fresh array); outside
+    :func:`rules_context`, ``t`` as it is."""
+    ctx = _current()
+    if ctx is None:
+        return t
+    mesh, rules = ctx
+    return place(t, mesh, _divisible(
+        t.shape, logical_to_spec(axes, rules, mesh), mesh))
+
+
+def place_params(params: torch.nn.Module, mesh, placements: Mapping[str, tuple]
+                 ) -> torch.nn.Module:
+    """A copy of ``params`` (the same on every rank) whose parameters are
+    DTensors of ``placements`` ({name: placements}, e.g.
+    :func:`param_placements`), each rank keeping its own shards."""
+    import copy
+    params = copy.deepcopy(params)
+    for name, p in list(params.named_parameters()):
+        mod_name, _, leaf = name.rpartition(".")
+        setattr(params.get_submodule(mod_name), leaf, torch.nn.Parameter(
+            place(p.detach(), mesh, placements[name]),
+            requires_grad=p.requires_grad))
+    return params
+
+
+# ---------------------------------------------------------------------------
+# the global batch seen from one slice
+# ---------------------------------------------------------------------------
+class BatchSlices(NamedTuple):
+    """How the global batch is split where the code runs: ``n`` slices
+    along its first axis over the mesh dimensions that ``placements``
+    shard, in mesh order (:func:`repro_torch.train.step.batch_shard`'s
+    order), this rank holding slice ``index``."""
+    mesh: Any
+    placements: tuple
+    n: int
+    index: int
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """(n, *t.shape): every slice's ``t``, in slice order (no
+        gradient)."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        pl = tuple(Shard(0) if p != Replicate() else Replicate()
+                   for p in self.placements)
+        return DTensor.from_local(t.detach()[None], self.mesh, pl,
+                                  run_check=False).full_tensor()
+
+    def total(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the slices of each slice's ``t`` (a replicated
+        DTensor; its gradient reaches every slice's ``t`` whole)."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        pl = tuple(Partial() if p != Replicate() else Replicate()
+                   for p in self.placements)
+        return DTensor.from_local(t, self.mesh, pl, run_check=False
+                                  ).redistribute(
+            self.mesh, (Replicate(),) * self.mesh.ndim)
+
+
+def slices_of(mesh, placements) -> BatchSlices:
+    """The :class:`BatchSlices` of a batch placed by ``placements`` (one
+    per mesh dimension, a shard of the batch axis where it is split; none
+    given: replicated, one slice)."""
+    from torch.distributed.tensor import Replicate
+    placements = tuple(placements) or (Replicate(),) * mesh.ndim
+    n, i = 1, 0
+    for d, p in enumerate(placements):
+        if p != Replicate():
+            size = mesh.mesh.shape[d]
+            n, i = n * size, i * size + mesh.get_local_rank(d)
+    return BatchSlices(mesh, tuple(placements), n, i)
+
+
+class _Slices:
+    """The batch slices in force for plain tensors (the "dp" step's):
+    process-wide, as :class:`_Active`."""
+    ctx: Optional[BatchSlices] = None
+
+
+@contextlib.contextmanager
+def slices_context(slices: Optional[BatchSlices]):
+    """Within the context, plain tensors are this rank's slice of the
+    global batch ("dp"): code whose result depends on the whole batch
+    (MoE's groups, capacities and aux loss) reads it from
+    :func:`batch_slices`."""
+    prev = _Slices.ctx
+    _Slices.ctx = slices
+    try:
+        yield
+    finally:
+        _Slices.ctx = prev
+
+
+def batch_slices(x: torch.Tensor) -> Optional[BatchSlices]:
+    """The slices of the global batch that ``x`` (batch axis first) is
+    one of: a DTensor's from its placements on its first axis, a plain
+    tensor's from :func:`slices_context`; None for the whole batch on one
+    device."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if isinstance(x, DTensor):
+        pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                   for p in x.placements)
+        s = slices_of(x.device_mesh, pl)
+        return s if s.n > 1 else None
+    s = _Slices.ctx
+    return s if s is not None and s.n > 1 else None
 
 
 def place(t: torch.Tensor, mesh, placements) -> torch.Tensor:

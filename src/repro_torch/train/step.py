@@ -16,15 +16,19 @@ device; :mod:`repro_torch.sharding`), the state is placed by
 :func:`train_state_shardings` (the reference's
 ``specs.train_state_shardings``): the parameters by the rules'
 ``param_placements``, m and v by ZeRO-1 (:func:`zero1_placements`).
-Each rank passes its own slice of the global batch (:func:`batch_shard`
-says which), and the loss is the mean over the global batch.
+Each rank passes its own slice of the global batch (:func:`local_batch`
+cuts it: with accumulation, its share of each microbatch), and the loss
+is the reference's: microbatch i is global rows [i mb, (i+1) mb), each
+with its own mean loss.
 
   * Rules that shard no parameter ("dp", the reference's pure data
     parallelism) keep the parameters plain, replicated tensors: each rank
     runs the one-device forward and backward on its slice, weighting its
-    loss by the global count of unpadded tokens, and the gradients are
-    reduce-scattered onto the ZeRO-1 shards
-    (:func:`~repro_torch.optim.adamw.apply_updates_sharded`).
+    loss by the microbatch's global count of unpadded tokens, and the
+    gradients are reduce-scattered onto the ZeRO-1 shards
+    (:func:`~repro_torch.optim.adamw.apply_updates_sharded`). The model
+    sees the slices (``slices_context``): MoE's groups, capacities and
+    aux loss are the global batch's, each rank adding its share.
   * Rules that shard parameters ("tp") make them DTensors and the batch
     a DTensor sharded over the data axes; the forward runs under the
     rules (``annotate``) with plain tensors made inside the model
@@ -38,7 +42,6 @@ Remat (``torch.utils.checkpoint``) and the chunked loss run under both.
 from __future__ import annotations
 
 import contextlib
-import copy
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
@@ -51,7 +54,9 @@ from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
                                      zero1_placements)
 from repro_torch.sharding.rules import (Rules, logical_to_spec,
                                         param_placements, place,
-                                        rules_context)
+                                        place_params, rules_context,
+                                        slices_context,
+                                        slices_of)
 from repro_torch.train.loss import chunked_xent_sum
 
 AUX_WEIGHT = 0.01
@@ -148,9 +153,30 @@ def train_state_shardings(params, cfg: ModelConfig, mesh, rules: Rules
     placements}, "step": placements}} of a train state on ``mesh``: the
     rules' parameter placements, and ZeRO-1's for the moments.
     ``params`` gives the names and shapes (``meta`` tensors do)."""
-    del cfg
     psh = param_placements(params, mesh, rules)
-    return {"params": psh, "opt": zero1_placements(psh, mesh, params)}
+    return {"params": psh, "opt": zero1_placements(
+        psh, mesh, params, stacked=_stack_lengths(cfg, params))}
+
+
+def _stack_lengths(cfg: ModelConfig, params) -> Dict[str, int]:
+    """{parameter name: the length of the reference's stack that holds
+    it}: a decoder layer's pattern periods (``T.layer_keys``), the
+    encoder's layers; 1 for the rest."""
+    keys = T.layer_keys(cfg)
+    periods = 1 + max((g for stack, _, g in keys if stack == "layers"),
+                      default=-1)
+    names = (dict(params.named_parameters()) if isinstance(params, nn.Module)
+             else params)
+    out = {}
+    for n in names:
+        head, _, rest = n.partition(".")
+        if head == "layers" and keys[int(rest.split(".")[0])][0] == "layers":
+            out[n] = periods
+        elif head == "encoder":
+            out[n] = cfg.encoder_layers
+        else:
+            out[n] = 1
+    return out
 
 
 def shards_params(placements: Mapping[str, tuple]) -> bool:
@@ -182,12 +208,7 @@ def place_train_state(state: State, cfg: ModelConfig, mesh, rules: Rules
     params = state["params"]
     sh = state_placements(params, cfg, mesh, rules)
     if sh["params"]:
-        params = copy.deepcopy(params)
-        for name, p in list(params.named_parameters()):
-            mod_name, _, leaf = name.rpartition(".")
-            setattr(params.get_submodule(mod_name), leaf, nn.Parameter(
-                place(p.detach(), mesh, sh["params"][name]),
-                requires_grad=p.requires_grad))
+        params = place_params(params, mesh, sh["params"])
     opt = {key: {k: place(t, mesh, sh["opt"][key][k])
                  for k, t in state["opt"][key].items()}
            for key in ("m", "v")}
@@ -214,17 +235,23 @@ def batch_shard(mesh, rules: Rules) -> Tuple[int, int]:
     return n, i
 
 
-def local_batch(batch: Mapping[str, torch.Tensor], mesh, rules: Rules
-                ) -> Dict[str, torch.Tensor]:
-    """This rank's slice of a global batch (see :func:`batch_shard`)."""
+def local_batch(batch: Mapping[str, torch.Tensor], mesh, rules: Rules,
+                accum_steps: int = 1) -> Dict[str, torch.Tensor]:
+    """This rank's slice of a global batch (see :func:`batch_shard`): its
+    share of each of the ``accum_steps`` microbatches (global rows
+    [i mb, (i+1) mb), the reference's), one after another, so that the
+    step's microbatch i on every rank is its part of global microbatch
+    i."""
     n, i = batch_shard(mesh, rules)
     out = {}
     for k, v in batch.items():
-        if v.shape[0] % n:
-            raise ValueError(f"a batch of {v.shape[0]} does not split "
-                             f"over {n} ranks")
-        s = v.shape[0] // n
-        out[k] = v[i * s:(i + 1) * s]
+        if v.shape[0] % (n * accum_steps):
+            raise ValueError(f"a batch of {v.shape[0]} does not split into "
+                             f"{accum_steps} microbatches over {n} ranks")
+        mb = v.shape[0] // accum_steps
+        s = mb // n
+        out[k] = torch.cat([v[j * mb + i * s:j * mb + (i + 1) * s]
+                            for j in range(accum_steps)])
     return out
 
 
@@ -236,7 +263,7 @@ def _sharded_step(cfg: ModelConfig, opt_cfg: AdamWConfig, accum_steps: int,
     # a per-rank value summed over the batch slices
     over_batch = tuple(Replicate() if p == Replicate() else Partial()
                        for p in bp)
-    n_slices = batch_shard(mesh, rules)[0]
+    slices = slices_of(mesh, bp)
 
     def summed(t: torch.Tensor) -> torch.Tensor:
         return DTensor.from_local(t, mesh, over_batch,
@@ -265,15 +292,17 @@ def _sharded_step(cfg: ModelConfig, opt_cfg: AdamWConfig, accum_steps: int,
                     loss = l if loss is None else loss + l
             grads, grad_pl = _grads(params), None
         else:
-            # the loss of the global batch: each slice's summed
-            # cross-entropy over the global count of unpadded tokens
-            count = summed(sum((m["labels"] >= 0).sum()
-                               for m in micros)).float()
-            with torch.enable_grad():
-                for micro in micros:
+            # each microbatch's loss over the global batch: each slice's
+            # summed cross-entropy over the microbatch's global count of
+            # unpadded tokens, and its share of the MoE aux loss (the
+            # model reads the slices from the context)
+            counts = summed(torch.stack([(m["labels"] >= 0).sum()
+                                         for m in micros])).float()
+            with slices_context(slices), torch.enable_grad():
+                for micro, count in zip(micros, counts):
                     tot, _, aux = loss_terms(params, cfg, micro)
-                    l = tot / count + AUX_WEIGHT * aux / (
-                        n_slices * accum_steps)
+                    l = (tot / torch.clamp(count, min=1)
+                         + AUX_WEIGHT * aux) / accum_steps
                     l.backward()
                     loss = l.detach() if loss is None else loss + l.detach()
             loss = summed(loss)

@@ -26,7 +26,16 @@
 * a checkpoint saved from the 4 "tp" ranks (full leaves) restored onto
   2 ranks and onto one process: the next step matches the 4 ranks'
   uninterrupted step; ``launch/train.py --mesh test`` resumed on 2 ranks
-  from a 4-rank run matches one process's ``train()``.
+  from a 4-rank run matches one process's ``train()``;
+* every family on the same mesh, one spawn per profile: one "dp" and one
+  "tp" step of the MoE, RWKV6, RG-LRU and encoder-decoder smoke configs,
+  and of qwen3 and MoE accumulating two microbatches, against one
+  process's step and the reference's one-device step at the tolerances
+  above ("tp" and "dp" within 1e-3); MoE's groups, capacities and aux
+  loss are the global batch's under "dp", and the microbatches global
+  rows; a "tp" prefill ``forward`` and decode steps of five families
+  equal one process's, every cache leaf placed as the reference's cache
+  shardings place it.
 
 Each spawn takes ~5-25 s here (four fresh interpreters that import
 torch and this module). The spawned ranks unpickle their functions from
@@ -42,6 +51,7 @@ import subprocess
 import sys
 import textwrap
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -730,3 +740,284 @@ def test_compressed_all_reduce_is_the_mean_within_quantization(
         np.testing.assert_array_equal(pred, port[0][0])
         assert np.abs(pred - exact).max() < 2 * scale
         assert np.abs(perr).max() <= 0.5 * scale * (1 + 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# every family sharded: "dp" and "tp" steps, accumulation, decode
+# ---------------------------------------------------------------------------
+FAMILIES = ("granite-moe-1b-a400m", "rwkv6-3b", "recurrentgemma-9b",
+            "whisper-tiny")
+MOE = "granite-moe-1b-a400m"
+#: (arch, accum_steps, global batch, sequence): each family's one step at
+#: the file's shape; qwen3 and MoE accumulating two microbatches (a
+#: batch of 8 x 16, so that each microbatch splits over the 4 "dp" ranks)
+STEP_CASES = tuple((a, 1, B, S) for a in FAMILIES) + (
+    (ARCH, 2, 8, 16), (MOE, 2, 8, 16))
+DECODE_ARCHS = (ARCH,) + FAMILIES
+S_ENC = 16
+DEC_PROMPT, DEC_STEPS = 16, 4
+#: a sharded forward and decode against one process's: max |diff| over
+#: max |logit| (f32; the sharded matmuls add in another order)
+DECODE_REL = 1e-5
+
+
+def _fcfg(arch):
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config(arch),
+                               attention_impl="blocked", remat="layer")
+
+
+def _fbatch(arch, b, s):
+    """The pipeline's step-0 batch of ``b`` x ``s`` (with seeded encoder
+    frames for an encoder-decoder), numpy."""
+    cfg = _fcfg(arch)
+    batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                  global_batch=b), 0)
+    if cfg.is_enc_dec:
+        batch["enc_frames"] = np.random.default_rng(7).standard_normal(
+            (b, S_ENC, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_state0(arch):
+    """The reference's seed-0 train state of ``arch``'s smoke config
+    (numpy)."""
+    R = _ref()
+    rcfg = dataclasses.replace(R.smoke(arch), remat="layer")
+    return R.jax.tree.map(np.asarray, R.RS.init_train_state(
+        R.jax.random.PRNGKey(0), rcfg))
+
+
+def _ref_family(arch, accum, b, s):
+    """The reference's state after one one-device step from its seed-0
+    state with ``accum`` microbatches, and that step's metrics (numpy)."""
+    R = _ref()
+    rcfg = dataclasses.replace(R.smoke(arch), remat="layer")
+    state = R.jax.tree.map(R.jnp.asarray, _ref_state0(arch))
+    step = R.jax.jit(R.RS.make_train_step(rcfg, R.AdamW(**OPT), accum))
+    state, m = step(state, {k: R.jnp.asarray(v)
+                            for k, v in _fbatch(arch, b, s).items()})
+    return (R.jax.tree.map(np.asarray, state),
+            {k: float(v) for k, v in m.items()})
+
+
+def _decode_run(cfg, params, toks, enc, mesh=None, rules=None):
+    """Logits of a prefill forward and of DEC_STEPS decode steps (full
+    tensors), and the cache leaves' placements (None when plain)."""
+    import contextlib
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.rules import (logical_to_spec, place,
+                                            rules_context)
+    ctx = contextlib.ExitStack()
+    wrap = (lambda t: t)
+    if mesh is not None:
+        ctx.enter_context(rules_context(mesh, rules))
+        ctx.enter_context(implicit_replication())
+        bp = logical_to_spec(("batch",), rules, mesh)
+        wrap = (lambda t: None if t is None else place(t, mesh, bp))
+    out = []
+    with ctx, torch.no_grad():
+        logits, _ = T.forward(params, cfg, wrap(toks[:, :DEC_PROMPT]),
+                              enc_frames=wrap(enc))
+        out.append(_full(logits))
+        cache = T.init_cache(cfg, toks.shape[0], DEC_PROMPT + DEC_STEPS,
+                             device="cpu", params=params,
+                             enc_frames=wrap(enc))
+        for i in range(DEC_STEPS):
+            logits, cache = T.decode_step(params, cfg,
+                                          wrap(toks[:, i:i + 1]), cache)
+            out.append(_full(logits))
+        # each leaf against the reference's cache shardings (a dimension
+        # the mesh does not divide stays whole, as ``annotate`` keeps it)
+        wrong = []
+        if mesh is not None:
+            from repro_torch.launch.specs import cache_axes
+            from repro_torch.sharding.rules import _divisible
+            for i, c in enumerate(cache):
+                for k, t in c.items():
+                    want = _divisible(t.shape, logical_to_spec(
+                        cache_axes(f"{i}/{k}", t.dim()), rules, mesh), mesh)
+                    got = (tuple(t.placements) if isinstance(t, DTensor)
+                           else None)
+                    if got != want:
+                        wrong.append((i, k, got, want))
+    return out, wrong
+
+
+def _family_rank(profile, cases, decode):
+    """One spawn of a profile group on the 2 x 2 mesh: each case's step
+    from the reference's seed-0 state; with ``decode`` (numpy tokens and
+    frames per arch), each arch's sharded forward and decode (its logits,
+    for one process's run in the test process, and the cache leaves'
+    misplacements)."""
+    from repro_torch.sharding.rules import param_placements, place_params
+    mesh = make_test_mesh()
+    out = {"steps": {}, "decode": {}}
+    for (arch, accum, b, s), state0, batch in cases:
+        cfg = _fcfg(arch)
+        rules = make_rules(cfg, mesh, batch_size=b, profile=profile)
+        state = PS.place_train_state(
+            convert.train_state(state0, cfg, device="cpu"), cfg, mesh, rules)
+        step = PS.make_train_step(cfg, AdamWConfig(**OPT), accum,
+                                  mesh=mesh, rules=rules)
+        state, m = step(state, PS.local_batch(_tensors(batch), mesh, rules,
+                                              accum))
+        snap = _snapshot(state)
+        out["steps"][(arch, accum)] = {
+            "metrics": {k: float(v) for k, v in m.items()},
+            "snap": snap if dist.get_rank() == 0 else None}
+    for arch, (toks, enc) in decode.items():
+        cfg = _fcfg(arch)
+        params = _decode_params(cfg)
+        rules = make_rules(cfg, mesh, batch_size=B, profile=profile)
+        got, wrong = _decode_run(
+            cfg, place_params(params, mesh, param_placements(
+                params, mesh, rules)), torch.from_numpy(toks),
+            None if enc is None else torch.from_numpy(enc), mesh, rules)
+        out["decode"][arch] = {"logits": got, "wrong": wrong}
+    return out
+
+
+def _decode_params(cfg):
+    from repro_torch.models import transformer as T
+    return T.init_params(cfg, generator=torch.Generator("cpu").manual_seed(0),
+                         device="cpu")
+
+
+def _decode_inputs(arch):
+    cfg = _fcfg(arch)
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, cfg.vocab_size, (B, DEC_PROMPT + DEC_STEPS))
+    enc = (rng.standard_normal((B, S_ENC, cfg.d_model)).astype(np.float32)
+           if cfg.is_enc_dec else None)
+    return toks.astype(np.int64), enc
+
+
+@pytest.fixture(scope="module")
+def family_runs(tmp_path_factory):
+    """The reference's and one process's step of every case and one
+    process's decode logits, while one spawn of 4 ranks per profile
+    ("tp" also runs the decode checks) and one of one rank (a "tp" step)
+    run."""
+    cases = [(case, _ref_state0(case[0]), _fbatch(case[0], *case[2:]))
+             for case in STEP_CASES]
+    tmp = tmp_path_factory.mktemp("families")
+    decode = {a: _decode_inputs(a) for a in DECODE_ARCHS}
+    ref, one, want = {}, {}, {}
+    with ThreadPoolExecutor(3) as pool:
+        ranks = {p: pool.submit(
+            spawn, _family_rank, WORLD, backend="gloo",
+            timeout_s=2 * TIMEOUT_S, init_method=_rdzv(tmp, f"rdzv_{p}"),
+            args=(p, cases, decode if p == "tp" else {}))
+            for p in ("dp", "tp")}
+        one_rank = pool.submit(
+            spawn, _one_rank_tp_rank, 1, backend="gloo", timeout_s=TIMEOUT_S,
+            init_method=_rdzv(tmp, "one"),
+            args=(_ref_state0(MOE), _fbatch(MOE, B, S)))
+        for (arch, accum, b, s), s0, batch in cases:
+            ref[(arch, accum)] = _ref_family(arch, accum, b, s)
+            cfg = _fcfg(arch)
+            state, m = PS.make_train_step(cfg, AdamWConfig(**OPT), accum)(
+                convert.train_state(s0, cfg, device="cpu"), _tensors(batch))
+            one[(arch, accum)] = ({k: float(v) for k, v in m.items()},
+                                  _snapshot(state))
+        for arch, (toks, enc) in decode.items():
+            cfg = _fcfg(arch)
+            want[arch], _ = _decode_run(
+                cfg, _decode_params(cfg), torch.from_numpy(toks),
+                None if enc is None else torch.from_numpy(enc))
+        ranks = {p: f.result() for p, f in ranks.items()}
+        one_rank = one_rank.result()[0]
+    return {"ref": ref, "one": one, "ranks": ranks, "one_rank": one_rank,
+            "decode_want": want}
+
+
+def _case_id(case):
+    return f"{case[0]}-accum{case[1]}"
+
+
+@pytest.mark.parametrize("oracle", ("one_process", "reference"))
+@pytest.mark.parametrize("profile", ("dp", "tp"))
+@pytest.mark.parametrize("case", STEP_CASES, ids=_case_id)
+def test_family_sharded_step_matches_one_device(family_runs, case, profile,
+                                                oracle):
+    """One step of each family (and the accumulating cases) on 4 ranks
+    against the port's one-process step and the reference's one-device
+    step, at the file's tolerances. For MoE under "dp" this holds the
+    global batch's groups, capacities and aux loss (each slice alone
+    would route its tokens in groups of its own size), and with
+    accumulation the reference's microbatches (global rows, each its own
+    mean)."""
+    arch, accum = case[:2]
+    cfg = _fcfg(arch)
+    got = family_runs["ranks"][profile][0]["steps"][(arch, accum)]
+    if oracle == "one_process":
+        w, snap = family_runs["one"][(arch, accum)]
+        want = dict(snap, m1=snap["m"])
+    else:
+        s1, w = family_runs["ref"][(arch, accum)]
+        want = _ref_leaves(s1, cfg)
+        want["m1"] = want["m"]
+    g = got["metrics"]
+    assert abs(g["loss"] - w["loss"]) <= LOSS_REL * abs(w["loss"])
+    assert abs(g["grad_norm"] - w["grad_norm"]) <= \
+        LOSS_REL * w["grad_norm"]
+    assert g["lr"] == pytest.approx(w["lr"], rel=1e-6)
+    assert_state_close(got["snap"], want, [w], 1,
+                       (arch, accum, profile, oracle))
+
+
+@pytest.mark.parametrize("case", STEP_CASES, ids=_case_id)
+def test_family_tp_and_dp_losses_agree(family_runs, case):
+    """The reference's bar between its two profiles (1e-3), and every
+    rank's metrics the same."""
+    key = case[:2]
+    dp, tp = (family_runs["ranks"][p] for p in ("dp", "tp"))
+    assert abs(dp[0]["steps"][key]["metrics"]["loss"]
+               - tp[0]["steps"][key]["metrics"]["loss"]) < TP_DP
+    for runs in (dp, tp):
+        for r in runs[1:]:
+            assert r["steps"][key]["metrics"] == \
+                runs[0]["steps"][key]["metrics"]
+
+
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_sharded_forward_and_decode_match_one_process(family_runs, arch):
+    """Under "tp" on the 2 x 2 mesh: a prefill forward and DEC_STEPS
+    decode steps of each family give one process's logits (DECODE_REL),
+    and every cache leaf is a DTensor placed as the reference's cache
+    shardings place it (heads over "model" where head-TP; the recurrent
+    states over their channels)."""
+    want = family_runs["decode_want"][arch]
+    for r in family_runs["ranks"]["tp"]:
+        got = r["decode"][arch]
+        rel = [float((g - w).abs().max() / w.abs().max())
+               for g, w in zip(got["logits"], want)]
+        assert len(rel) == DEC_STEPS + 1 and max(rel) <= DECODE_REL, rel
+        assert got["wrong"] == [], got["wrong"]
+
+
+def _one_rank_tp_rank(state0, batch):
+    """A MoE "tp" step on a (1, 1) mesh: one batch slice, so the aux loss
+    takes the one-slice path, and must still come back a DTensor."""
+    cfg = _fcfg(MOE)
+    mesh = make_test_mesh(1, 1)
+    rules = make_rules(cfg, mesh, batch_size=B, profile="tp")
+    state = PS.place_train_state(
+        convert.train_state(state0, cfg, device="cpu"), cfg, mesh, rules)
+    _, m = PS.make_train_step(cfg, AdamWConfig(**OPT), mesh=mesh,
+                              rules=rules)(
+        state, PS.local_batch(_tensors(batch), mesh, rules))
+    return {k: float(v) for k, v in m.items()}
+
+
+def test_moe_tp_step_on_one_rank_matches_one_process(family_runs):
+    """The one-rank group the card machine runs: MoE's "tp" step on (1, 1)
+    equals one process's (loss and grad norm rel 1e-5)."""
+    got = family_runs["one_rank"]
+    want = family_runs["one"][(MOE, 1)][0]
+    for k in ("loss", "grad_norm"):
+        assert abs(got[k] - want[k]) <= LOSS_REL * abs(want[k]), k
