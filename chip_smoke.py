@@ -422,12 +422,14 @@ def launch_floor_ms(device) -> float:
 
 
 def device_kernels(prof) -> list:
-    """(device us, launches, name) of every kernel a profile saw."""
+    """(device us, launches, name) of every kernel a profile saw; the
+    program's own spans (``repro_torch.*``) are not kernels."""
     import torch
     return [(ev.self_device_time_total, ev.count, ev.key)
             for ev in prof.key_averages()
             if ev.self_device_time_total > 0
-            and ev.device_type == torch.autograd.DeviceType.CUDA]
+            and ev.device_type == torch.autograd.DeviceType.CUDA
+            and not ev.key.startswith("repro_torch.")]
 
 
 def probe_rank_bound(args, G=10):

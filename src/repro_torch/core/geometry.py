@@ -195,6 +195,12 @@ class DeviceGeometry:
     def n_clusters(self) -> int:
         return self.structure.n_clusters
 
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the (fields, P) timing table, copied to the device
+        once."""
+        return self._table.nbytes
+
     def point(self, name: str) -> torch.Tensor:
         """Timing field ``name`` as a (P,) tensor, for per-point counters."""
         return self._rows[name]

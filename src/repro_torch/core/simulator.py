@@ -50,7 +50,7 @@ from repro_torch.core.noc import (NocModel, NocTraffic, NocTransit, get_noc,
                                   init_noc_state, registered_nocs)
 from repro_torch.core.probe import resolve_probe_backend
 from repro_torch.core.telemetry import (TelemetryConfig, log2_bucket,
-                                        log2_edges_tensor)
+                                        log2_edges_tensor, span)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -380,101 +380,115 @@ def _round(runs: _Runs, geom, insn_per_req, core_app, state, addr,
     """
     l1, l2, noc, stats = state
     P, C, m = addr.shape
-    reqs = _request_batch(geom, addr, is_write, routing)
-    addr = reqs.addr                              # (P, R) flattened
-    R = reqs.n_requests
 
     # ---- L1 policy stage (the only architecture-specific part) -----------
-    out = _l1_stage(runs.archs, geom, l1, reqs, t,
-                    probe_backend=probe_backend)
-    l1 = out.l1
-    go_l2 = out.go_l2
-    noc_flits = out.noc_flits
-    occupancy = out.occupancy
+    with span("round.l1"):
+        reqs = _request_batch(geom, addr, is_write, routing)
+        addr = reqs.addr                          # (P, R) flattened
+        R = reqs.n_requests
+        out = _l1_stage(runs.archs, geom, l1, reqs, t,
+                        probe_backend=probe_backend)
+        l1 = out.l1
+        go_l2 = out.go_l2
+        noc_flits = out.noc_flits
+        occupancy = out.occupancy
 
     # ---- L2 stage ---------------------------------------------------------
-    l2_part = addr % geom.l2_parts
-    l2_set = (addr // geom.l2_parts) % geom.l2_sets
-    l2_hit, l2_way, _ = tagarray.probe(l2, l2_part, l2_set, addr)
-    l2_rank, l2_size = group_rank(l2_part, go_l2, geom.l2_parts)
-    l2_time = (geom.lat_l2 + l2_rank.to(torch.float32) * geom.svc_l2
-               + torch.where(l2_hit, 0.0, geom.lat_dram))
-    occupancy = torch.maximum(
-        occupancy,
-        torch.where(go_l2, l2_size.to(torch.float32) * geom.svc_l2, 0.0))
-    l2 = tagarray.touch(l2, l2_part, l2_set, l2_way, t, go_l2 & l2_hit)
-    l2, _ = tagarray.fill(l2, l2_part, l2_set, l2_way, addr, t,
-                          go_l2 & ~l2_hit)
-    noc_flits = noc_flits + go_l2.sum(dim=-1) * geom.point("flits_per_line")
+    with span("round.l2"):
+        l2_part = addr % geom.l2_parts
+        l2_set = (addr // geom.l2_parts) % geom.l2_sets
+        l2_hit, l2_way, _ = tagarray.probe(l2, l2_part, l2_set, addr)
+        l2_rank, l2_size = group_rank(l2_part, go_l2, geom.l2_parts)
+        l2_time = (geom.lat_l2 + l2_rank.to(torch.float32) * geom.svc_l2
+                   + torch.where(l2_hit, 0.0, geom.lat_dram))
+        occupancy = torch.maximum(
+            occupancy,
+            torch.where(go_l2, l2_size.to(torch.float32) * geom.svc_l2,
+                        0.0))
+        l2 = tagarray.touch(l2, l2_part, l2_set, l2_way, t, go_l2 & l2_hit)
+        l2, _ = tagarray.fill(l2, l2_part, l2_set, l2_way, addr, t,
+                              go_l2 & ~l2_hit)
+        noc_flits = (noc_flits
+                     + go_l2.sum(dim=-1) * geom.point("flits_per_line"))
 
     # ---- L1 fill on L2 return (and on remote fetch: replicate locally) ----
-    fill_mask = go_l2 | out.remote_hits
-    if out.bypass_fill is not None:       # None: every return fills
-        fill_mask = fill_mask & ~out.bypass_fill
-    fway = _fill_way(runs.archs, l1, out, addr)
-    l1, wb = tagarray.fill(l1, out.fill_cache, out.fill_set, fway, addr, t,
-                           fill_mask, dirty=reqs.is_write)
-    noc_flits = noc_flits + wb.sum(dim=-1) * geom.point("flits_per_line")
+    with span("round.fill"):
+        fill_mask = go_l2 | out.remote_hits
+        if out.bypass_fill is not None:   # None: every return fills
+            fill_mask = fill_mask & ~out.bypass_fill
+        fway = _fill_way(runs.archs, l1, out, addr)
+        l1, wb = tagarray.fill(l1, out.fill_cache, out.fill_set, fway, addr,
+                               t, fill_mask, dirty=reqs.is_write)
+        noc_flits = noc_flits + wb.sum(dim=-1) * geom.point("flits_per_line")
 
     # ---- NoC stage: remote flits through the interconnect model ----------
-    req_flits = _outcome_field("noc_req_flits", out, reqs, geom)
-    traffic = NocTraffic(
-        src=_outcome_field("noc_src", out, reqs, geom),
-        dst=reqs.core, cluster=reqs.cluster, flits=req_flits,
-        mask=req_flits > 0)
-    transit = _transit(runs.nocs, geom, noc, traffic)
-    noc = transit.state
-    occupancy = torch.maximum(occupancy, transit.occupancy)
+    with span("round.noc"):
+        req_flits = _outcome_field("noc_req_flits", out, reqs, geom)
+        traffic = NocTraffic(
+            src=_outcome_field("noc_src", out, reqs, geom),
+            dst=reqs.core, cluster=reqs.cluster, flits=req_flits,
+            mask=req_flits > 0)
+        transit = _transit(runs.nocs, geom, noc, traffic)
+        noc = transit.state
+        occupancy = torch.maximum(occupancy, transit.occupancy)
 
     # ---- timing ------------------------------------------------------------
-    latency = (torch.where(out.served, out.l1_time, out.pre_l2 + l2_time)
-               + transit.delay)                                # (P, R)
-    # Warp multithreading hides individual request latencies; the core's
-    # sustained pace is set by *mean* outstanding latency per load, while
-    # serial-resource occupancy is a hard throughput bound (max over m).
-    per_core_lat = latency.reshape(P, C, m).sum(dim=-1) / m
-    per_core_occ = occupancy.reshape(P, C, m).amax(dim=-1)
-    pace = m * insn_per_req / geom.issue_rate
-    round_cost = torch.maximum(torch.maximum(pace, per_core_occ),
-                               per_core_lat / geom.hide)       # (P, C)
+    with span("round.timing"):
+        latency = (torch.where(out.served, out.l1_time, out.pre_l2 + l2_time)
+                   + transit.delay)                            # (P, R)
+        # Warp multithreading hides individual request latencies; the
+        # core's sustained pace is set by *mean* outstanding latency per
+        # load, while serial-resource occupancy is a hard throughput
+        # bound (max over m).
+        per_core_lat = latency.reshape(P, C, m).sum(dim=-1) / m
+        per_core_occ = occupancy.reshape(P, C, m).amax(dim=-1)
+        pace = m * insn_per_req / geom.issue_rate
+        round_cost = torch.maximum(torch.maximum(pace, per_core_occ),
+                                   per_core_lat / geom.hide)   # (P, C)
 
-    # Fig. 10 metric: completion time of the L1 accesses of one load
-    # instruction, over loads fully served by the L1 complex.
-    all_served = out.served.reshape(P, C, m).all(dim=-1)
-    l1_complete = (out.l1_time + transit.delay).reshape(P, C, m).amax(dim=-1)
+        # Fig. 10 metric: completion time of the L1 accesses of one load
+        # instruction, over loads fully served by the L1 complex.
+        all_served = out.served.reshape(P, C, m).all(dim=-1)
+        l1_complete = (out.l1_time
+                       + transit.delay).reshape(P, C, m).amax(dim=-1)
 
-    # Per-app attribution: hit counters scatter-add by the issuing core's
-    # app id (small integers in float32 — exact in any order). The
-    # per-app latency sum is order-dependent in float32, so the round
-    # hands its per-core values back and _fold_app_lat adds them on the
-    # host in the reference's order.
-    req_app = core_app.gather(-1, reqs.core.long())             # (P, R)
-    f32 = torch.float32
-    app_served_lat = torch.where(all_served, l1_complete, 0.0)  # (P, C)
+    # ---- counters ----------------------------------------------------------
+    with span("round.stats"):
+        # Per-app attribution: hit counters scatter-add by the issuing
+        # core's app id (small integers in float32 — exact in any
+        # order). The per-app latency sum is order-dependent in float32,
+        # so the round hands its per-core values back and _fold_app_lat
+        # adds them on the host in the reference's order.
+        req_app = core_app.gather(-1, reqs.core.long())         # (P, R)
+        f32 = torch.float32
+        app_served_lat = torch.where(all_served, l1_complete, 0.0)  # (P, C)
 
-    stats = {
-        "cycles": stats["cycles"] + round_cost,
-        "l1_lat_sum": stats["l1_lat_sum"] + app_served_lat.sum(dim=-1),
-        "l1_lat_n": stats["l1_lat_n"] + all_served.sum(dim=-1),
-        "local_hits": stats["local_hits"] + out.local_hits.sum(dim=-1),
-        "remote_hits": stats["remote_hits"] + out.remote_hits.sum(dim=-1),
-        "requests": stats["requests"] + R,
-        "l2_accesses": stats["l2_accesses"] + go_l2.sum(dim=-1),
-        "dram": stats["dram"] + (go_l2 & ~l2_hit).sum(dim=-1),
-        "noc_flits": stats["noc_flits"] + noc_flits,
-        "app_local": stats["app_local"].scatter_add(
-            -1, req_app, out.local_hits.to(f32)),
-        "app_remote": stats["app_remote"].scatter_add(
-            -1, req_app, out.remote_hits.to(f32)),
-        "app_lat_n": stats["app_lat_n"].scatter_add(
-            -1, core_app, all_served.to(f32)),
-    }
-    if hist_edges is not None:
-        # log2-bucketed L1-complete latency histogram over served loads
-        # (unserved cores add 0); integer counts, exact in any order
-        bucket = log2_bucket(l1_complete, hist_edges.numel() + 1, hist_edges)
-        stats["lat_hist"] = state[3]["lat_hist"].scatter_add_(
-            -1, bucket, all_served.to(torch.int32))
+        stats = {
+            "cycles": stats["cycles"] + round_cost,
+            "l1_lat_sum": stats["l1_lat_sum"] + app_served_lat.sum(dim=-1),
+            "l1_lat_n": stats["l1_lat_n"] + all_served.sum(dim=-1),
+            "local_hits": stats["local_hits"] + out.local_hits.sum(dim=-1),
+            "remote_hits": (stats["remote_hits"]
+                            + out.remote_hits.sum(dim=-1)),
+            "requests": stats["requests"] + R,
+            "l2_accesses": stats["l2_accesses"] + go_l2.sum(dim=-1),
+            "dram": stats["dram"] + (go_l2 & ~l2_hit).sum(dim=-1),
+            "noc_flits": stats["noc_flits"] + noc_flits,
+            "app_local": stats["app_local"].scatter_add(
+                -1, req_app, out.local_hits.to(f32)),
+            "app_remote": stats["app_remote"].scatter_add(
+                -1, req_app, out.remote_hits.to(f32)),
+            "app_lat_n": stats["app_lat_n"].scatter_add(
+                -1, core_app, all_served.to(f32)),
+        }
+        if hist_edges is not None:
+            # log2-bucketed L1-complete latency histogram over served
+            # loads (unserved cores add 0); integer counts, exact in any
+            # order
+            bucket = log2_bucket(l1_complete, hist_edges.numel() + 1,
+                                 hist_edges)
+            stats["lat_hist"] = state[3]["lat_hist"].scatter_add_(
+                -1, bucket, all_served.to(torch.int32))
     return (l1, l2, noc, stats), app_served_lat
 
 
@@ -685,76 +699,117 @@ class _PointPass:
         models = [get_noc(n) for n in dict.fromkeys(nocs)]
         self.runs = _Runs(_member_runs(policies, archs),
                           _member_runs(models, nocs))
-        self.g = g = DeviceGeometry([geoms[i] for i in order], device)
         self.probe_backend = probe_backend
         self.telemetry = telemetry
+        #: the bytes this pass copies to its device and reads back from
+        #: it (the arrays' ``nbytes``; a copy to the CPU is a no-op,
+        #: counted all the same)
+        self.upload_bytes = self.readback_bytes = 0
 
-        # round-major, so each round's (P, C, m) slice is contiguous
-        self.addr = torch.from_numpy(
-            np.stack([t.addr for t in traces], axis=1)).to(device)
-        self.is_write = torch.from_numpy(
-            np.stack([t.is_write for t in traces], axis=1)).to(device)
-        self.insn = torch.from_numpy(np.stack(
-            [np.asarray(t.insn_per_req, np.float32).reshape(-1)
-             for t in traces])).to(device)                     # (P, 1|C)
-        self.core_app_np = np.stack(
-            [t.core_app_ids for t in traces]).astype(np.int64)
-        self.core_app = torch.from_numpy(self.core_app_np).to(device)
-        self.ts = torch.arange(T, dtype=torch.int32, device=device)
-        self.routing = _routing(g, P, C, m, device)
+        def upload(stack):
+            """``(host, device)`` copies of the array ``stack()`` makes."""
+            with span("pass.stack"):
+                host = stack()
+            with span("pass.upload"):
+                self.upload_bytes += host.nbytes
+                return host, torch.from_numpy(host).to(device)
 
-        hist_bins = (telemetry.sim_hist_bins
-                     if telemetry is not None and telemetry.histograms
-                     else None)
-        self.state = (_l1_state(g, policies, P, device),
-                      _l2_state(g, P, device),
-                      _noc_state(g, models, P, device),
-                      _init_stats(g, P, n_apps, device, hist_bins))
-        self.hist_edges = (log2_edges_tensor(hist_bins, device)
-                           if hist_bins is not None else None)
-        self.window = W = (telemetry.window_for(T) if telemetry is not None
-                           else 0)
-        self.snaps = None if telemetry is None else {
-            part: {k: torch.empty((T // W,) + v.shape, dtype=v.dtype,
-                                  device=device)
-                   for k, v in carried.items()}
-            for part, carried in (("stats", self.state[3]),
-                                  ("noc", self.state[2]))}
-        self.served_lat = torch.empty((T, P, C), dtype=torch.float32,
-                                      device=device)
+        with span("pass.prepare"):
+            # round-major, so each round's (P, C, m) slice is contiguous;
+            # one array stacked and uploaded at a time, so the host holds
+            # one stacked copy at a time
+            self.addr = upload(lambda: np.stack(
+                [t.addr for t in traces], axis=1))[1]
+            self.is_write = upload(lambda: np.stack(
+                [t.is_write for t in traces], axis=1))[1]
+            self.insn = upload(lambda: np.stack(
+                [np.asarray(t.insn_per_req, np.float32).reshape(-1)
+                 for t in traces]))[1]                          # (P, 1|C)
+            self.core_app_np, self.core_app = upload(lambda: np.stack(
+                [t.core_app_ids for t in traces]).astype(np.int64))
+            with span("pass.state"):
+                self.g = g = DeviceGeometry([geoms[i] for i in order],
+                                            device)
+                self.upload_bytes += g.nbytes
+                self.ts = torch.arange(T, dtype=torch.int32, device=device)
+                self.routing = _routing(g, P, C, m, device)
+                hist_bins = (telemetry.sim_hist_bins
+                             if telemetry is not None and telemetry.histograms
+                             else None)
+                self.state = (_l1_state(g, policies, P, device),
+                              _l2_state(g, P, device),
+                              _noc_state(g, models, P, device),
+                              _init_stats(g, P, n_apps, device, hist_bins))
+                self.hist_edges = None
+                if hist_bins is not None:
+                    self.hist_edges = log2_edges_tensor(hist_bins, device)
+                    self.upload_bytes += self.hist_edges.nbytes
+                self.window = W = (telemetry.window_for(T)
+                                   if telemetry is not None else 0)
+                self.snaps = None if telemetry is None else {
+                    part: {k: torch.empty((T // W,) + v.shape,
+                                          dtype=v.dtype, device=device)
+                           for k, v in carried.items()}
+                    for part, carried in (("stats", self.state[3]),
+                                          ("noc", self.state[2]))}
+                self.served_lat = torch.empty((T, P, C), dtype=torch.float32,
+                                              device=device)
 
     def round(self, i: int) -> None:
         """Launch round ``i`` (rounds run in order, 0 first)."""
-        self.state, self.served_lat[i] = _round(
-            self.runs, self.g, self.insn, self.core_app, self.state,
-            self.addr[i], self.is_write[i], self.ts[i], self.routing,
-            probe_backend=self.probe_backend, hist_edges=self.hist_edges)
-        W = self.window
-        if self.snaps is not None and (i + 1) % W == 0:
-            _snapshot(self.snaps, i // W, self.state)
+        with span("pass.round"):
+            self.state, self.served_lat[i] = _round(
+                self.runs, self.g, self.insn, self.core_app, self.state,
+                self.addr[i], self.is_write[i], self.ts[i], self.routing,
+                probe_backend=self.probe_backend, hist_edges=self.hist_edges)
+            W = self.window
+            if self.snaps is not None and (i + 1) % W == 0:
+                _snapshot(self.snaps, i // W, self.state)
 
     def finish(self):
         """The per-point results in input order (with ``telemetry``,
-        ``(results, timelines)``), read back to the host."""
+        ``(results, timelines)``), read back to the host.
+
+        On a card it first waits for the queued rounds to drain
+        (``pass.wait``), which the first read-back would otherwise do,
+        so that ``pass.readback`` holds the copies alone."""
+        with span("pass.finish"):
+            return self._finish()
+
+    def _finish(self):
         state, order, traces = self.state, self.order, self.traces
         n_apps, core_app_np = self.n_apps, self.core_app_np
-        stats = {k: v.cpu().numpy() for k, v in state[3].items()}
-        served_lat = self.served_lat.cpu().numpy()
-        stats["app_lat_sum"] = _fold_app_lat(served_lat, core_app_np, n_apps)
-        noc_state = {k: v.cpu().numpy() for k, v in state[2].items()}
-        out: List[Optional[SimResult]] = [None] * len(traces)
-        for b, (i, tr) in enumerate(zip(order, traces)):
-            out[i] = _summarize(
-                {**{k: v[b] for k, v in stats.items()},
-                 "noc": {k: v[b] for k, v in noc_state.items()}}, tr)
-        if self.telemetry is None:
+        device = self.served_lat.device
+        with span("pass.wait"):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        with span("pass.readback"):
+            stats = {k: v.cpu().numpy() for k, v in state[3].items()}
+            served_lat = self.served_lat.cpu().numpy()
+            noc_state = {k: v.cpu().numpy() for k, v in state[2].items()}
+            snaps = None if self.snaps is None else {
+                part: {k: v.cpu().numpy() for k, v in bufs.items()}
+                for part, bufs in self.snaps.items()}
+            self.readback_bytes += sum(
+                x.nbytes for d in (stats, noc_state, *(snaps or {}).values())
+                for x in d.values()) + served_lat.nbytes
+        with span("pass.fold"):
+            stats["app_lat_sum"] = _fold_app_lat(served_lat, core_app_np,
+                                                 n_apps)
+            if snaps is not None:
+                snaps["stats"]["app_lat_sum"] = _fold_app_lat(
+                    served_lat, core_app_np, n_apps, self.window)
+        with span("pass.summarize"):
+            out: List[Optional[SimResult]] = [None] * len(traces)
+            for b, (i, tr) in enumerate(zip(order, traces)):
+                out[i] = _summarize(
+                    {**{k: v[b] for k, v in stats.items()},
+                     "noc": {k: v[b] for k, v in noc_state.items()}}, tr)
+        if snaps is None:
             return out
-        snaps = {part: {k: v.cpu().numpy() for k, v in bufs.items()}
-                 for part, bufs in self.snaps.items()}
-        snaps["stats"]["app_lat_sum"] = _fold_app_lat(
-            served_lat, core_app_np, n_apps, self.window)
-        return out, _timelines(snaps, order, self.archs, self.nocs, traces,
-                               self.g, self.telemetry)
+        with span("pass.timelines"):
+            return out, _timelines(snaps, order, self.archs, self.nocs,
+                                   traces, self.g, self.telemetry)
 
 
 def _simulate_points(archs: Sequence[str], nocs: Sequence[str],
@@ -771,8 +826,9 @@ def _simulate_points(archs: Sequence[str], nocs: Sequence[str],
     """
     p = _PointPass(archs, nocs, traces, geoms, probe_backend=probe_backend,
                    device=device, telemetry=telemetry)
-    for i in range(p.rounds):
-        p.round(i)
+    with span("pass.rounds"):
+        for i in range(p.rounds):
+            p.round(i)
     return p.finish()
 
 

@@ -69,7 +69,7 @@ from repro_torch.core.geometry import (GpuGeometry, PAPER_GEOMETRY,
                                        geom_structure)
 from repro_torch.core.noc import get_noc, registered_nocs
 from repro_torch.core.probe import PROBE_BACKENDS, resolve_probe_backend
-from repro_torch.core.telemetry import TelemetryConfig
+from repro_torch.core.telemetry import TelemetryConfig, span
 from repro_torch.sharding.compat import make_mesh_1d
 from repro_torch.core.simulator import (SimResult, Trace, _check_arch,
                                         _check_noc, _PointPass,
@@ -93,12 +93,16 @@ class SweepPoint(NamedTuple):
 class SweepReport:
     """Pass accounting for one :meth:`SweepGrid.run`: ``n_executables``
     distinct bucket keys (batched passes) dispatched, ``n_compiles`` of
-    them new to this process."""
+    them new to this process; ``upload_bytes`` and ``readback_bytes``
+    the bytes the passes copied to their devices and read back (a copy
+    to the CPU is a no-op, and counted all the same)."""
     n_points: int
     n_executables: int
     n_compiles: int
     n_devices: int
     wall_s: float
+    upload_bytes: int = 0
+    readback_bytes: int = 0
 
 
 class SweepRun(NamedTuple):
@@ -318,6 +322,10 @@ class SweepGrid:
         ``repro_torch.obs.SimTimeline`` per point (aligned with
         :attr:`points`), and the results stay bit-equal to a run
         without it."""
+        with span("sweep.run"):
+            return self._run(n_devices, telemetry, device, devices)
+
+    def _run(self, n_devices, telemetry, device, devices) -> SweepRun:
         t0 = time.perf_counter()
         if telemetry is not None:
             for p in self.points:
@@ -325,27 +333,32 @@ class SweepGrid:
         pool = split_devices(n_devices, device, devices)
         D = len(pool)
         dev_type = pool[0].type
-        group_of = self._arch_group_of()
-        noc_group_of = self._noc_group_of()
-        buckets: Dict[tuple, List[int]] = {}
-        for i, p in enumerate(self.points):
-            key = (group_of[p.arch], noc_group_of[p.noc],
-                   geom_structure(p.geom), trace_kind(p.trace),
-                   resolve_probe_backend(p.probe_backend, pool[0]))
-            buckets.setdefault(key, []).append(i)
+        with span("sweep.bucket"):
+            group_of = self._arch_group_of()
+            noc_group_of = self._noc_group_of()
+            buckets: Dict[tuple, List[int]] = {}
+            for i, p in enumerate(self.points):
+                key = (group_of[p.arch], noc_group_of[p.noc],
+                       geom_structure(p.geom), trace_kind(p.trace),
+                       resolve_probe_backend(p.probe_backend, pool[0]))
+                buckets.setdefault(key, []).append(i)
+            # each bucket cut into D contiguous slices, one per device
+            cuts = {}
+            for key, idxs in buckets.items():
+                per = -(-len(idxs) // D)
+                cuts[key] = [(idxs[j * per:(j + 1) * per], dev)
+                             for j, dev in enumerate(pool) if idxs[j * per:]]
 
         results: List[Optional[SimResult]] = [None] * len(self.points)
         timelines = None if telemetry is None else [None] * len(self.points)
         used, new_compiles = set(), 0
-        for key, idxs in buckets.items():
+        upload_bytes = readback_bytes = 0
+        for key, slices in cuts.items():
             exec_key = key + (dev_type,)
             used.add(exec_key)
             if exec_key not in _COMPILED_KEYS:
                 _COMPILED_KEYS.add(exec_key)
                 new_compiles += 1
-            per = -(-len(idxs) // D)
-            slices = [(idxs[j * per:(j + 1) * per], dev)
-                      for j, dev in enumerate(pool) if idxs[j * per:]]
             passes = []
             for part, dev in slices:
                 pts = [self.points[i] for i in part]
@@ -353,9 +366,10 @@ class SweepGrid:
                     [p.arch for p in pts], [p.noc for p in pts],
                     [p.trace for p in pts], [p.geom for p in pts],
                     probe_backend=key[4], device=dev, telemetry=telemetry))
-            for r in range(passes[0].rounds):
-                for ps in passes:
-                    ps.round(r)
+            with span("pass.rounds"):
+                for r in range(passes[0].rounds):
+                    for ps in passes:
+                        ps.round(r)
             for (part, _), ps in zip(slices, passes):
                 out = ps.finish()
                 if telemetry is not None:
@@ -366,10 +380,14 @@ class SweepGrid:
                         timelines[i] = tl
                 for i, r in zip(part, out):
                     results[i] = r
+                upload_bytes += ps.upload_bytes
+                readback_bytes += ps.readback_bytes
         report = SweepReport(n_points=len(self.points),
                              n_executables=len(used),
                              n_compiles=new_compiles, n_devices=D,
-                             wall_s=time.perf_counter() - t0)
+                             wall_s=time.perf_counter() - t0,
+                             upload_bytes=upload_bytes,
+                             readback_bytes=readback_bytes)
         return SweepRun(results=results, report=report,  # type: ignore
                         timelines=timelines)
 

@@ -27,6 +27,12 @@ the shared vocabulary for *keeping* the time axis:
   are exact at bucket granularity (:func:`hist_quantile_edges` returns
   the conservative upper edge).
 
+* :func:`span` + :data:`SWEEP_SPANS` — named host spans around the
+  sweep's work (bucketing, a pass's stacking, upload and state set-up,
+  its rounds and their stages, the read-back, fold and summaries). They
+  cost a check of one flag when no profiler runs, and land on the
+  profiler's clock, among the kernels and copies, when one does.
+
 The window contract: ``rounds % window == 0`` (checked with a
 divisor-suggesting error). Snapshots are *cumulative*, so the final
 snapshot equals the run total by construction and per-window deltas
@@ -35,6 +41,7 @@ telescope back to it exactly (the conservation guarantee
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional, Tuple
@@ -45,7 +52,7 @@ import torch
 __all__ = [
     "TelemetryConfig", "Counter", "SIM_COUNTERS", "SERVE_COUNTERS",
     "log2_bucket", "log2_edges", "hist_quantile", "hist_quantile_edges",
-    "serving_hist_bins",
+    "serving_hist_bins", "span", "SPAN_PREFIX", "SWEEP_SPANS",
 ]
 
 
@@ -177,6 +184,64 @@ SERVE_COUNTERS: Tuple[Counter, ...] = (
     Counter("lat_hist", "requests", "bucket", "lat_hist",
             "value-resolved modeled-latency histogram (1 cycle/bucket)"),
 )
+
+
+# ---------------------------------------------------------------------------
+# host spans
+# ---------------------------------------------------------------------------
+
+#: Every program span's name starts with this, so a trace reader can
+#: tell the program's ranges from the operators and kernels around them.
+SPAN_PREFIX = "repro_torch."
+
+#: Every span the sweep opens (``SweepGrid.run``, ``_PointPass`` and
+#: ``_round``), nested as listed: ``sweep.run`` holds ``sweep.bucket``
+#: and the passes; ``pass.prepare`` holds ``pass.stack`` (the traces'
+#: ``np.stack``), ``pass.upload`` (their copies to the device) and
+#: ``pass.state`` (geometry, routing and state set-up); ``pass.rounds``
+#: holds one ``pass.round`` per round and pass, each holding the six
+#: ``round.*`` stages of ``_round``; ``pass.finish`` holds
+#: ``pass.wait`` (the device draining the queued rounds),
+#: ``pass.readback``, ``pass.fold`` (``_fold_app_lat``),
+#: ``pass.summarize`` and, with telemetry, ``pass.timelines``.
+SWEEP_SPANS: Tuple[str, ...] = tuple(SPAN_PREFIX + n for n in (
+    "sweep.run", "sweep.bucket",
+    "pass.prepare", "pass.stack", "pass.upload", "pass.state",
+    "pass.rounds", "pass.round",
+    "round.l1", "round.l2", "round.fill", "round.noc", "round.timing",
+    "round.stats",
+    "pass.finish", "pass.wait", "pass.readback", "pass.fold",
+    "pass.summarize", "pass.timelines",
+))
+
+_OFF = contextlib.nullcontext()
+#: the function-scope profiler range a span opens: a private torch API
+#: (checked on torch 2.11 and 2.13), looked up once so that a torch
+#: without it fails with a message of its own at the first profiled span
+_RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+
+
+def span(name: str):
+    """A host span ``SPAN_PREFIX + name`` while a ``torch.profiler``
+    profile is recording, else one shared no-op context.
+
+    The span is a function-scope profiler range, which the profiler
+    keeps on the host alone: a ``record_function`` range is a user
+    annotation, and the profiler mirrors each of those on the device
+    timeline as an event of its own, which a reader that sums the
+    device's events would count as device work. Kernels and copies
+    launched inside a span link to it through their launching operator
+    (``linked_correlation_id``), whose host start lies inside the span.
+    No sync, read-back or allocation either way.
+    """
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    if _RANGE is None:
+        raise RuntimeError(
+            f"torch {torch.__version__} has no "
+            "torch._C._profiler._RecordFunctionFast, which the program's "
+            "host spans open under a profile")
+    return _RANGE(SPAN_PREFIX + name)
 
 
 # ---------------------------------------------------------------------------
