@@ -26,15 +26,24 @@ with and without them.
 Requests are (P, R) tensors: request ``r`` of point ``p`` reads and
 writes only point ``p``'s arrays.
 
+Writes are in place, where the reference is pure: ``touch``, ``fill``,
+``victim_insert`` and ``victim_invalidate`` scatter into the tensors of
+the state they are given and return that same state, so a round costs
+the entries its requests write, not a copy of every field. A caller
+that still needs the state as it was passes a copy. Each function
+gathers every value it reads from the state before its first write, and
+a field must be contiguous (``.view(-1)`` raises otherwise, rather than
+writing into a copy).
+
 Scatter convention (the reference's, made explicit): masked-out
 requests change nothing, and among the masked-in requests of one point
 duplicate (array, set, way) targets resolve last-writer-wins — the
 highest request index. Torch gives no order for duplicate scatter
-targets on CUDA, so :func:`_winner` picks that request with an
-``amax`` scatter of request indices, and every request aimed at a
-target then writes the winner's value: duplicate writes agree, and the
-result is the same on every device. ``last`` is a max-scatter, which
-needs no winner (masked-out lanes contribute ``INT32_MIN``).
+targets on CUDA, so :func:`_winner` picks that request among the
+point's own R requests, and every request aimed at a target then writes
+the winner's value: duplicate writes agree, and the result is the same
+on every device. ``last`` is a max-scatter, which needs no winner
+(masked-out lanes contribute ``INT32_MIN``).
 """
 from __future__ import annotations
 
@@ -157,32 +166,44 @@ def probe_many(state: TagState, arrays, set_idx, addr
     return hits, ways, dirty
 
 
-def _winner(field: torch.Tensor, idx, mask) -> torch.Tensor:
-    """Per request: the flat (p * R + r) index of the last masked-in
-    request aimed at the same element of ``field``, or -1 if none."""
-    lane = torch.arange(idx.numel(), device=idx.device).view_as(idx)
-    win = torch.full((field.numel(),), -1, dtype=torch.long,
-                     device=idx.device)
-    win.scatter_reduce_(0, idx.reshape(-1),
-                        torch.where(mask, lane, -1).reshape(-1), "amax")
-    return win[idx]
+def _winner(idx, mask) -> torch.Tensor:
+    """Per (P, R) request: the flat (p * R + r') index of the last
+    masked-in request r' of its own point aimed at the same element, or
+    -1 if none.
+
+    A target carries its point, so it collides only with targets of the
+    point's own R requests. Each point's targets are sorted, and each
+    request's target is named by the first position of its run in the
+    sorted row; the masked-in lane numbers are max-scattered onto those
+    names. Every tensor is (P, R) or P * R long, nothing the size of
+    the field.
+    """
+    P, R = idx.shape
+    base = torch.arange(0, P * R, R, device=idx.device)[:, None]
+    run = base + torch.searchsorted(idx.sort(dim=-1).values, idx)
+    lane = torch.arange(P * R, device=idx.device).view(P, R)
+    last = torch.full((P * R,), -1, dtype=torch.long, device=idx.device)
+    last.scatter_reduce_(0, run.view(-1),
+                         torch.where(mask, lane, -1).view(-1), "amax")
+    return last[run]
 
 
-def _write(field: torch.Tensor, idx, win, value) -> torch.Tensor:
-    """``field`` with each element a masked-in request targets set to the
-    winning request's ``value`` (a scalar or a (P, R) tensor)."""
-    flat = field.reshape(-1)
+def _write(field: torch.Tensor, idx, win, value) -> None:
+    """Set, in place, each element of ``field`` a masked-in request
+    targets to the winning request's ``value`` (a scalar or a (P, R)
+    tensor). Lanes with no winner write back the element as it was."""
+    flat = field.view(-1)
     if torch.is_tensor(value) and value.dim() > 0:
         value = value.reshape(-1)[win.clamp(min=0)]
     val = torch.where(win >= 0, value, flat[idx])
-    return flat.scatter(0, idx.reshape(-1), val.reshape(-1)).view_as(field)
+    flat.scatter_(0, idx.reshape(-1), val.reshape(-1))
 
 
-def _max_at(field: torch.Tensor, idx, now, mask) -> torch.Tensor:
-    """``field.at[idx].max(now)`` over the masked-in requests."""
+def _max_at(field: torch.Tensor, idx, now, mask) -> None:
+    """``field.at[idx].max(now)`` over the masked-in requests, in place."""
     src = torch.where(mask, now, INT32_MIN).to(field.dtype)
-    return field.reshape(-1).scatter_reduce(
-        0, idx.reshape(-1), src.reshape(-1), "amax").view_as(field)
+    field.view(-1).scatter_reduce_(0, idx.reshape(-1), src.reshape(-1),
+                                   "amax")
 
 
 def _elem(state: TagState, array_idx, set_idx, way) -> torch.Tensor:
@@ -198,41 +219,38 @@ def entry(state: TagState, key: str, array_idx, set_idx, way
 
 def touch(state: TagState, array_idx, set_idx, way, now, mask, *,
           set_dirty=None) -> TagState:
-    """Refresh LRU timestamp (and optionally dirty) for masked requests.
+    """Refresh LRU timestamp (and optionally dirty) for masked requests,
+    in place; returns ``state``.
 
     ``now`` is the round counter, an int32 zero-dim tensor.
     """
     idx = _elem(state, array_idx, set_idx, way)
-    out = dict(state, last=_max_at(state["last"], idx, now, mask))
+    _max_at(state["last"], idx, now, mask)
     if set_dirty is not None:
-        sel = mask & set_dirty
-        out["dirty"] = _write(state["dirty"], idx,
-                              _winner(state["dirty"], idx, sel), True)
-    return out
+        _write(state["dirty"], idx, _winner(idx, mask & set_dirty), True)
+    return state
 
 
 def fill(state: TagState, array_idx, set_idx, way, addr, now, mask, *,
          dirty=None) -> Tuple[TagState, torch.Tensor]:
-    """Install lines for masked requests; returns (state, evicted_dirty).
+    """Install lines for masked requests, in place; returns (state,
+    evicted_dirty).
 
     Masked-out requests change nothing; within the masked-in ones,
     duplicate (array, set, way) targets resolve last-writer-wins (see
     the module docstring). ``evicted_dirty`` flags write-back traffic.
     """
     idx = _elem(state, array_idx, set_idx, way)
-    old_valid = state["valid"].reshape(-1)[idx]
-    old_dirty = state["dirty"].reshape(-1)[idx]
+    old_valid = state["valid"].view(-1)[idx]
+    old_dirty = state["dirty"].view(-1)[idx]
     evicted_dirty = mask & old_valid & old_dirty
-    win = _winner(state["tags"], idx, mask)
-    out = dict(
-        state,
-        tags=_write(state["tags"], idx, win, addr),
-        valid=_write(state["valid"], idx, win, True),
-        last=_max_at(state["last"], idx, now, mask),
-        born=_write(state["born"], idx, win, now),
-        dirty=_write(state["dirty"], idx, win,
-                     dirty if dirty is not None else False))
-    return out, evicted_dirty
+    win = _winner(idx, mask)
+    _write(state["tags"], idx, win, addr)
+    _write(state["valid"], idx, win, True)
+    _max_at(state["last"], idx, now, mask)
+    _write(state["born"], idx, win, now)
+    _write(state["dirty"], idx, win, dirty if dirty is not None else False)
+    return state, evicted_dirty
 
 
 def dead_victim(state: TagState, array_idx, set_idx, addr,
@@ -290,17 +308,18 @@ def victim_probe(state: TagState, array_idx, addr
 
 
 def victim_invalidate(state: TagState, array_idx, slot, mask) -> TagState:
-    """Drop masked requests' victim entries (e.g. on promote back to L1)."""
+    """Drop masked requests' victim entries (e.g. on promote back to L1),
+    in place; returns ``state``."""
     if victim_ways(state) == 0:
         return state
     idx = _vrow(state, array_idx) * victim_ways(state) + slot.long()
-    field = state["vvalid"]
-    return dict(state, vvalid=_write(field, idx, _winner(field, idx, mask),
-                                     False))
+    _write(state["vvalid"], idx, _winner(idx, mask), False)
+    return state
 
 
 def victim_insert(state: TagState, array_idx, addr, now, mask) -> TagState:
-    """FIFO-install masked requests' tags into their victim buffers.
+    """FIFO-install masked requests' tags into their victim buffers, in
+    place; returns ``state``.
 
     Each request's slot comes from the buffer as it stands before the
     insert: invalid slots win first, then the oldest install. Duplicate
@@ -316,9 +335,8 @@ def victim_insert(state: TagState, array_idx, addr, now, mask) -> TagState:
     vborn = _gather(state, "vborn", row)
     slot = torch.where(vvalid, vborn, INT32_MIN).argmin(dim=-1)
     idx = row * victim_ways(state) + slot
-    win = _winner(state["vtags"], idx, mask)
-    return dict(
-        state,
-        vtags=_write(state["vtags"], idx, win, addr),
-        vvalid=_write(state["vvalid"], idx, win, True),
-        vborn=_write(state["vborn"], idx, win, now))
+    win = _winner(idx, mask)
+    _write(state["vtags"], idx, win, addr)
+    _write(state["vvalid"], idx, win, True)
+    _write(state["vborn"], idx, win, now)
+    return state

@@ -181,3 +181,119 @@ def test_init_tag_state_matches_reference_layout():
         assert got[k].shape == (2,) + tuple(v.shape), k
         assert str(got[k].dtype).split(".")[-1] == str(v.dtype), k
         np.testing.assert_array_equal(got[k][1].numpy(), np.asarray(v))
+
+
+# ---------------------------------------------------------------------------
+# the in-place write path: the winner over a point's own requests, and
+# writes that land in the tensors they are given
+# ---------------------------------------------------------------------------
+def _winner_oracle(idx, mask, numel):
+    """Last masked-in lane per target by an ``amax`` scatter of lane
+    numbers into a buffer the size of the field."""
+    lane = torch.arange(idx.numel()).view_as(idx)
+    win = torch.full((numel,), -1, dtype=torch.long)
+    win.scatter_reduce_(0, idx.reshape(-1),
+                        torch.where(mask, lane, -1).reshape(-1), "amax")
+    return win[idx]
+
+
+@pytest.mark.parametrize("P", [1, 3])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_winner_matches_a_field_sized_oracle(seed, P):
+    rng = np.random.default_rng(seed)
+    R, E = 40, 8                       # 40 requests over 8 elements a point
+    local = rng.integers(0, E, (P, R))
+    mask = rng.random((P, R)) < 0.5
+    # a masked-in lane before a masked-out duplicate, alone on their
+    # element: lane 2 wins for both
+    local[local == E - 1] = 0
+    local[:, 2] = local[:, 5] = E - 1
+    mask[:, 2], mask[:, 5] = True, False
+    if P > 1:
+        mask[1] = False                # a point with every lane masked out
+    idx = torch.from_numpy(np.arange(P)[:, None] * E + local)
+    mask = torch.from_numpy(mask)
+    got = port._winner(idx, mask)
+    assert torch.equal(got, _winner_oracle(idx, mask, P * E))
+    base = torch.arange(P) * R
+    assert torch.equal(got[0, [2, 5]], base[0] + torch.tensor([2, 2]))
+    if P > 1:
+        assert bool((got[1] == -1).all())
+    # dense duplicates: some target is hit by several masked-in lanes
+    assert (got >= 0).sum() > len(set(got[got >= 0].tolist()))
+
+
+def _victim_state(rng, A=6, V=4):
+    """``_state`` with a populated victim buffer of V entries per array."""
+    st = _state(rng, A=A)
+    st.update(vtags=rng.integers(0, 24, (A, V)).astype(np.int32),
+              vvalid=rng.random((A, V)) < 0.6,
+              vborn=np.stack([rng.permutation(40)[:V]
+                              for _ in range(A)]).astype(np.int32))
+    return st
+
+
+def _ref_call(op, st, a, s, addr, way, mask, flag, now):
+    j = {k: jnp.asarray(v) for k, v in st.items()}
+    a, s, addr, way, mask, flag = map(jnp.asarray,
+                                      (a, s, addr, way, mask, flag))
+    now = jnp.int32(now)
+    if op == "touch":
+        return ref.touch(j, a, s, way, now, mask, set_dirty=flag)
+    if op == "fill":
+        return ref.fill(j, a, s, way, addr, now, mask, dirty=flag)[0]
+    if op == "victim_insert":
+        return ref.victim_insert(j, a, addr, now, mask)
+    return ref.victim_invalidate(j, a, way % st["vtags"].shape[-1], mask)
+
+
+def _port_call(op, st, a, s, addr, way, mask, flag, now):
+    a, s, addr, way, mask, flag = map(_t, (a, s, addr, way, mask, flag))
+    now = torch.tensor(now, dtype=torch.int32)
+    if op == "touch":
+        return port.touch(st, a, s, way, now, mask, set_dirty=flag)
+    if op == "fill":
+        return port.fill(st, a, s, way, addr, now, mask, dirty=flag)[0]
+    if op == "victim_insert":
+        return port.victim_insert(st, a, addr, now, mask)
+    return port.victim_invalidate(st, a, way % st["vtags"].shape[-1], mask)
+
+
+@pytest.mark.parametrize("op", ["touch", "fill", "victim_insert",
+                                "victim_invalidate"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_writes_land_in_the_given_tensors(seed, op):
+    rng = np.random.default_rng(seed)
+    st = _victim_state(rng)
+    reqs = _requests(rng, st)
+    want = _ref_call(op, st, *reqs, now=63)
+    state = convert.tag_state(st, device="cpu")
+    given = dict(state)
+    ptrs = {k: v.data_ptr() for k, v in state.items()}
+    got = _port_call(op, state, *reqs, now=63)
+    for k in state:
+        assert got[k] is given[k] and got[k].data_ptr() == ptrs[k], k
+    _assert_state_equal(got, want)
+    written = {"touch": ("last", "dirty"), "fill": ("tags", "last"),
+               "victim_insert": ("vtags",),
+               "victim_invalidate": ("vvalid",)}[op]
+    assert any(not np.array_equal(np.asarray(want[k]), st[k])
+               for k in written)
+
+
+@pytest.mark.parametrize("op,key", [("touch", "last"), ("touch", "dirty"),
+                                    ("fill", "tags"), ("fill", "valid"),
+                                    ("fill", "last"), ("fill", "born"),
+                                    ("fill", "dirty"),
+                                    ("victim_insert", "vtags"),
+                                    ("victim_invalidate", "vvalid")])
+def test_a_field_that_is_not_contiguous_raises(op, key):
+    rng = np.random.default_rng(4)
+    st = _victim_state(rng)
+    reqs = _requests(rng, st)
+    state = convert.tag_state(st, device="cpu")
+    # the same values, laid out with the last two axes swapped
+    state[key] = state[key].transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert not state[key].is_contiguous()
+    with pytest.raises(RuntimeError, match="view size"):
+        _port_call(op, state, *reqs, now=63)

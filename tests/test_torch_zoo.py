@@ -385,6 +385,12 @@ def _outcomes_equal(a, b):
             assert torch.equal(x, y), f
 
 
+def _own(state):
+    """A copy of ``state`` for one stage: the stages write in place, so
+    two stages handed one state would see each other's writes."""
+    return {k: v.clone() for k, v in state.items()}
+
+
 def test_degenerate_policies_at_the_l1_stage():
     """On a warmed state with the extensions present, the disabled zoo
     policies' rounds are their base policies', outputs and state."""
@@ -394,14 +400,15 @@ def test_degenerate_policies_at_the_l1_stage():
     empty = convert.tag_state(dict(l1, vtags=l1["vtags"][:, :0],
                                    vvalid=l1["vvalid"][:, :0],
                                    vborn=l1["vborn"][:, :0]), device="cpu")
-    _outcomes_equal(VictimPolicy(victim_ways=0).l1_stage(g, empty, reqs, t),
-                    AtaPolicy().l1_stage(g, empty, reqs, t))
+    _outcomes_equal(
+        VictimPolicy(victim_ways=0).l1_stage(g, _own(empty), reqs, t),
+        AtaPolicy().l1_stage(g, _own(empty), reqs, t))
     trace, l1 = _mid_run("ciao")
     g, _, reqs = _both_requests(trace)
     state = convert.tag_state(l1, device="cpu")
-    _outcomes_equal(CiaoPolicy(thrash_threshold=0).l1_stage(g, state, reqs,
-                                                            t),
-                    PrivatePolicy().l1_stage(g, state, reqs, t))
+    _outcomes_equal(
+        CiaoPolicy(thrash_threshold=0).l1_stage(g, _own(state), reqs, t),
+        PrivatePolicy().l1_stage(g, _own(state), reqs, t))
 
 
 # ---------------------------------------------------------------------------
